@@ -1,0 +1,443 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (taichislam_tpu_torch) on one GPU.
+
+Phases:
+  1. card line (nvidia-smi) and the kernel build (nvcc, from csrc/);
+  2. each hand-written kernel against its plain PyTorch twin on the card,
+     at the main path's shapes, with both times (CUDA events, median);
+  3. the main path at the bench configuration: 640x480 depth frames fused
+     into a 5 cm TSDF (V = 16, 2048 blocks, float16 storage) with the
+     per-frame incremental ESDF (budget 3, and budget 1, which takes the
+     per-sweep kernel), capacities grown until nothing is dropped; the
+     kernels' launch counters must grow during this run;
+  4. the first frames again through the plain path on the CPU: tables and
+     observed flags exact, TSDF and ESDF within 4e-3, sweep counts equal;
+  5. the model API: DenseESDF.recast_depth_to_map on the card.
+
+Exits non-zero without a result when no CUDA device is present. The last
+line is {"ok": true, "device": {...}}; the line before it lists the kernels.
+
+Usage: python3 chip_smoke.py
+"""
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+N_FRAMES = 16
+CPU_FRAMES = 4
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, reps):
+    """Median ms of ``fn()`` over ``reps`` runs (CUDA events, warmed)."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def require(cond, what):
+    if not cond:
+        raise AssertionError(what)
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their twins
+# ---------------------------------------------------------------------------
+
+def check_seg_accum(dev, results):
+    import torch
+    from taichislam_tpu_torch.ops.kernels import seg_accum as k1
+
+    rng = np.random.default_rng(1)
+    sites = []
+    # march site: keys over 2197 blocks x 4096 voxels, 60 x 8192 lanes,
+    # 10% invalid, f16-rounded pair of values, lane cap 524288
+    n = 60 * 8192
+    bkey = rng.integers(0, 2197, n).astype(np.int32)
+    bkey[rng.random(n) < 0.1] = k1.SENTINEL_BLOCK
+    intra = rng.integers(0, 4096, n).astype(np.int32)
+    vals = [rng.random(n, dtype=np.float32) * 50,
+            rng.standard_normal(n).astype(np.float32) * 5]
+    sites.append(("march", bkey, intra, vals,
+                  dict(V3=4096, max_touched=256, lane_cap=524288,
+                       vals_f16=True)))
+    # bins site: one block of V3 = 8192 bins, presorted ranks, 5 values
+    n = 76800
+    rank = np.sort(rng.integers(0, 9000, n)).astype(np.int32)
+    _, rank = np.unique(rank, return_inverse=True)
+    rank = rank.astype(np.int32)
+    ok = rank < 8192
+    bkey = np.where(ok, 0, k1.SENTINEL_BLOCK).astype(np.int32)
+    intra = np.where(ok, rank, 0).astype(np.int32)
+    vals = [np.ones(n, np.float32)] + [rng.standard_normal(n).astype(
+        np.float32) for _ in range(4)]
+    sites.append(("bins", bkey, intra, vals,
+                  dict(V3=8192, max_touched=1, presorted=True)))
+
+    err = 0.0
+    for name, bkey, intra, vals, kw in sites:
+        args = (torch.from_numpy(bkey).to(dev),
+                torch.from_numpy(intra).to(dev),
+                [torch.from_numpy(v).to(dev) for v in vals])
+        got = k1.segmented_block_reduce(*args, **kw)
+        want = k1.segmented_block_reduce_ref(*args, **kw)
+        torch.cuda.synchronize()
+        require(torch.equal(got[0], want[0]), f"K1 {name}: touched keys")
+        require(int(got[2]) == int(want[2]), f"K1 {name}: n_touched")
+        require(int(got[3]) == int(want[3]), f"K1 {name}: lanes_dropped")
+        e = float((got[1] - want[1]).abs().max())
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-5)
+        err = max(err, e)
+        ms = cuda_ms(lambda: k1.segmented_block_reduce(*args, **kw), 20)
+        pms = cuda_ms(lambda: k1.segmented_block_reduce_ref(*args, **kw), 20)
+        log(f"[phase2] K1 {name}: n_touched {int(got[2])} max_abs_err {e} "
+            f"ms {ms:.4f} plain_ms {pms:.4f}")
+        if name == "march":
+            results["K1"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+    results["K1"]["max_abs_err"] = err
+
+
+def _sweep_fields(rng, N, V, n_upd):
+    """Random halo-assembled fields in the sweep layout: participating
+    voxels with TSDF in [-0.4, 0.4], a field near the seeds, an
+    interior-only side mask consistent with the encoding."""
+    import torch
+    W = V + 2
+    tsdf = rng.uniform(-0.4, 0.4, (N, W, W * W)).astype(np.float32)
+    part = rng.random((N, W, W * W)) < 0.85
+    enc = np.where(part, tsdf, 1e6).astype(np.float32)
+    esdf = (tsdf + rng.uniform(-0.3, 0.3, tsdf.shape)).astype(np.float32)
+    c = np.arange(W)
+    inter1 = (c >= 1) & (c <= V)
+    inter = (inter1[:, None, None] & inter1[None, :, None] &
+             inter1[None, None, :]).reshape(1, W, W * W)
+    fixed = part & (np.abs(tsdf) < 0.05)
+    upd = (np.arange(N) < n_upd)[:, None, None]
+    side = np.where(part & ~fixed & inter & upd,
+                    np.where(tsdf >= 0, 1, -1), 0).astype(np.int8)
+    enc[-1] = 1e6   # garbage row: never a source
+    esdf[-1] = 0.0
+    return [torch.from_numpy(a) for a in (esdf, enc, side)]
+
+
+def check_esdf(dev, results):
+    import torch
+    from taichislam_tpu_torch.ops.kernels import esdf_sweep as ks
+
+    V, N, n_upd = 16, 264, 200
+    rng = np.random.default_rng(2)
+    esdf, enc, side = (t.to(dev) for t in _sweep_fields(rng, N, V, n_upd))
+    kw = dict(V=V, v1=0.05, gamma=0.05, eps=0.025, max_ray=3.0)
+    slab_act = torch.from_numpy((rng.random(N // 8) < 0.8).astype(
+        np.int32)).to(dev)
+    err2, times = 0.0, {}
+    for scans in (False, True):
+        got = ks.esdf_sweep(esdf, enc, side, slab_act, with_scans=scans, **kw)
+        want = ks.esdf_sweep_ref(esdf, enc, side, slab_act, with_scans=scans,
+                                 **kw)
+        e = float((got - want).abs().max())
+        require(e <= 1e-6, f"K2 scans={scans}: max abs err {e}")
+        err2 = max(err2, e)
+        times[scans] = (
+            cuda_ms(lambda: ks.esdf_sweep(esdf, enc, side, slab_act,
+                                          with_scans=scans, **kw), 20),
+            cuda_ms(lambda: ks.esdf_sweep_ref(esdf, enc, side, slab_act,
+                                              with_scans=scans, **kw), 5))
+        log(f"[phase2] K2 scans={scans}: max_abs_err {e} ms "
+            f"{times[scans][0]:.4f} plain_ms {times[scans][1]:.4f}")
+    results["K2"] = dict(max_abs_err=err2, ms=times[True][0],
+                         plain_ms=times[True][1])
+
+    # K3: a random 27-neighbour table over the 257 used rows (garbage row
+    # 256 = cap), rows past the garbage row padding
+    cap = 256
+    nsl = rng.integers(0, cap + 1, (27, N)).astype(np.int32)
+    nsl[13] = np.minimum(np.arange(N), cap)
+    nsl[:, cap:] = cap
+    nsl = torch.from_numpy(nsl).to(dev)
+    upd = torch.from_numpy((np.arange(N) < n_upd).astype(np.int32)).to(dev)
+    # enc of the garbage and pad rows must be ENC_BIG
+    enc3 = enc.clone()
+    enc3[cap:] = 1e6
+    esdf = esdf.clone()
+    esdf[cap:] = 0.0
+    err3 = 0.0
+    for budget in (3, 32):
+        lk = dict(kw, eps_conv=2e-3, max_sweeps=budget, scan_sweeps=1,
+                  scan_period=0)
+        got, gst = ks.esdf_sweep_loop(esdf, enc3, nsl, upd, **lk)
+        want, wst = ks.esdf_sweep_loop_ref(esdf, enc3, nsl, upd, **lk)
+        require(torch.equal(gst.cpu(), wst.cpu()),
+                f"K3 budget {budget}: stats {gst.tolist()} vs {wst.tolist()}")
+        e = float((got - want).abs().max())
+        require(e <= 1e-6, f"K3 budget {budget}: max abs err {e}")
+        rows_g = ((got - esdf).abs() > 2e-3).flatten(1).any(1)
+        rows_w = ((want - esdf).abs() > 2e-3).flatten(1).any(1)
+        require(torch.equal(rows_g, rows_w), f"K3 budget {budget}: rows")
+        err3 = max(err3, e)
+        ms = cuda_ms(lambda: ks.esdf_sweep_loop(esdf, enc3, nsl, upd, **lk),
+                     10)
+        pms = cuda_ms(lambda: ks.esdf_sweep_loop_ref(esdf, enc3, nsl, upd,
+                                                     **lk), 3)
+        log(f"[phase2] K3 budget {budget}: stats {gst.tolist()} "
+            f"max_abs_err {e} ms {ms:.4f} plain_ms {pms:.4f}")
+        if budget == 3:
+            results["K3"] = dict(max_abs_err=err3, ms=ms, plain_ms=pms)
+    results["K3"]["max_abs_err"] = err3
+
+
+# ---------------------------------------------------------------------------
+# phases 3-5: the main path
+# ---------------------------------------------------------------------------
+
+def bench_config():
+    from taichislam_tpu_torch.core.config import TSDFConfig
+    return TSDFConfig(
+        map_scale=(10.0, 10.0), voxel_scale=0.05, num_voxel_per_blk_axis=16,
+        max_ray_length=3.0, min_ray_length=0.3, recast_step=2,
+        max_blocks=2048, max_bins=8192, max_submap_num=64,
+        max_touched_blocks=256, max_march_lanes=524288,
+        storage_dtype="float16", esdf_raise_slack_voxels=0.5,
+        esdf_converge_eps=2e-3)
+
+
+def run_frames(cfg, frames, dev, esdf_cap, budget, n=None, stages=None):
+    """The per-frame loop: integrate, gate, incremental ESDF. Returns the
+    final state, ESDF arrays, per-frame sweeps and the capacity maxima.
+    With ``stages`` (a list), CUDA events around the three stages of each
+    frame are appended to it."""
+    import torch
+    from taichislam_tpu_torch.ops import esdf as esdf_ops
+    from taichislam_tpu_torch.ops import tsdf as tsdf_ops
+
+    depth, Rs, Ts, K = frames
+    spec = cfg.grid
+    shape = (spec.max_blocks + 1, spec.voxels_per_block)
+    state = tsdf_ops.make_tsdf_state(cfg, device=dev)
+    esdf = torch.zeros(shape, device=dev)
+    fixed = torch.zeros(shape, dtype=torch.int8, device=dev)
+    pending = torch.zeros((shape[0],), dtype=torch.bool, device=dev)
+    seen_t = torch.zeros(shape, device=dev)
+    seen_o = torch.zeros(shape, dtype=torch.bool, device=dev)
+    part = None
+    rows = []
+    def mark():
+        if stages is not None:
+            stages.append(torch.cuda.Event(enable_timing=True))
+            stages[-1].record()
+
+    for f in range(len(depth) if n is None else n):
+        mark()
+        state, stats = tsdf_ops.integrate_depth(cfg, state, depth[f], Rs[f],
+                                                Ts[f], K, 0)
+        sweeps = ov = torch.zeros((), dtype=torch.int32, device=dev)
+        mark()
+        if budget:
+            dirty, seen_t, seen_o = esdf_ops.esdf_seed_dirty(
+                cfg, state, seen_t, seen_o, stats["touched_blocks"])
+            dirty = dirty | pending
+            mark()
+            esdf, fixed, part, sweeps, pending, ov = esdf_ops.esdf_update(
+                cfg, budget, esdf_cap, state, esdf, fixed, 0, dirty,
+                tsdf_src=seen_t, obs_src=seen_o)
+            mark()
+        rows.append(torch.stack([
+            stats["alloc_overflow"] + stats["touched_dropped"] +
+            stats["lanes_dropped"], stats["bins_dropped"], ov.to(torch.int32),
+            stats["num_bins"] + stats["bins_dropped"], stats["live_lanes"],
+            sweeps.to(torch.int32)]))
+    per_frame = torch.stack(rows).cpu().numpy()
+    return state, esdf, fixed, part, per_frame
+
+
+def size_capacities(cfg, frames, dev, esdf_cap, budget):
+    """Grow capacities as bench.py does until no frame drops anything."""
+    from taichislam_tpu_torch.models.dense_tsdf import bin_bucket_for
+    for _ in range(8):
+        *_, pf = run_frames(cfg, frames, dev, esdf_cap, budget)
+        dropped, bins_dropped, esdf_ov = (int(pf[:, i].max())
+                                          for i in range(3))
+        want = bin_bucket_for(int(pf[:, 3].max()))
+        want_lanes = bin_bucket_for(int(pf[:, 4].max()))
+        if esdf_ov > 0:
+            need = esdf_cap + esdf_ov
+            while esdf_cap < need:
+                esdf_cap *= 2
+        elif dropped + bins_dropped == 0 and want >= cfg.max_bins and \
+                cfg.max_march_lanes == want_lanes:
+            return cfg, esdf_cap, pf
+        elif dropped + bins_dropped == 0 and want < cfg.max_bins:
+            cfg = dataclasses.replace(cfg, max_bins=want,
+                                      max_march_lanes=want_lanes)
+        elif dropped + bins_dropped == 0:
+            cfg = dataclasses.replace(cfg, max_march_lanes=want_lanes)
+        else:
+            cfg = dataclasses.replace(
+                cfg, max_bins=max(want, cfg.max_bins),
+                max_march_lanes=want_lanes,
+                max_touched_blocks=cfg.max_touched_blocks * 2)
+    raise AssertionError("capacities did not settle without drops")
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from taichislam_tpu_torch.ops.kernels import build
+    from taichislam_tpu_torch.ops.kernels import esdf_sweep as ks
+    from taichislam_tpu_torch.ops.kernels import seg_accum as k1
+    from taichislam_tpu_torch.utils.synthetic_scene import orbit_sequence
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # ---- phase 1 ----------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"[phase1] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    build.library()
+    log(f"[phase1] kernels built and loaded in "
+        f"{time.perf_counter() - t0:.1f} s ({build.library_path().name})")
+
+    # ---- phase 2 ----------------------------------------------------------
+    results = {}
+    check_seg_accum(dev, results)
+    check_esdf(dev, results)
+
+    # ---- phase 3 ----------------------------------------------------------
+    t0 = time.perf_counter()
+    depth, Rs, Ts, K = orbit_sequence(n_frames=N_FRAMES, noise_mm=3.0)
+    log(f"[phase3] rendered {N_FRAMES} frames in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def upload(d):
+        return ([torch.from_numpy(x.astype(np.int32)).to(d) for x in depth],
+                [torch.from_numpy(x).to(d) for x in Rs],
+                [torch.from_numpy(x).to(d) for x in Ts],
+                torch.from_numpy(K).to(d))
+    frames = upload(dev)
+    cfg, cap, _ = size_capacities(bench_config(), frames, dev, 256, 3)
+    cfg1, cap1, _ = size_capacities(cfg, frames, dev, cap, 1)
+    log(f"[phase3] sized: max_bins {cfg.max_bins} max_march_lanes "
+        f"{cfg.max_march_lanes} max_touched_blocks {cfg.max_touched_blocks} "
+        f"esdf_cap {cap}")
+
+    k1.segmented_block_reduce.launches = 0
+    ks.esdf_sweep.launches = 0
+    ks.esdf_sweep_loop.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    state, esdf, fixed, part, pf3 = run_frames(cfg, frames, dev, cap, 3)
+    *_, pf1 = run_frames(cfg1, frames, dev, cap1, 1)
+    torch.cuda.synchronize()
+    launches = {"K1": k1.segmented_block_reduce.launches,
+                "K2": ks.esdf_sweep.launches,
+                "K3": ks.esdf_sweep_loop.launches}
+    log(f"[phase3] launches during the main path: {launches}")
+    for k, v in launches.items():
+        require(v > 0, f"{k} was not launched on the main path")
+    for pf, name in ((pf3, "budget 3"), (pf1, "budget 1")):
+        require(int(pf[:, :3].max()) == 0, f"capacity drops ({name})")
+    require(bool(torch.isfinite(esdf[part]).all()), "ESDF not finite")
+    n_obs = int(part.sum())
+    require(n_obs > 0, "empty map")
+    log(f"[phase3] blocks {int(state.num_blocks)} observed voxels {n_obs} "
+        f"sweeps/frame {pf3[:, 5].tolist()} peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    for name, c, cp, b in (("fusion+esdf budget 3", cfg, cap, 3),
+                           ("fusion+esdf budget 1", cfg1, cap1, 1),
+                           ("fusion only", cfg, cap, 0)):
+        ms = cuda_ms(lambda: run_frames(c, frames, dev, cp, b), 3) / N_FRAMES
+        log(f"[phase3] {name}: {ms:.3f} ms/frame ({smi})")
+    ev = []
+    run_frames(cfg, frames, dev, cap, 3, stages=ev)
+    torch.cuda.synchronize()
+    per = np.array([a.elapsed_time(b) for a, b in zip(ev[:-1], ev[1:])])
+    per = per[np.arange(len(per)) % 4 != 3].reshape(N_FRAMES, 3).mean(0)
+    log(f"[phase3] budget 3 per stage, ms/frame: integrate {per[0]:.3f} "
+        f"seed_dirty {per[1]:.3f} esdf_update {per[2]:.3f} ({smi})")
+
+    # ---- phase 4 ----------------------------------------------------------
+    torch.set_num_threads(8)
+    cpu = torch.device("cpu")
+    g_state, g_esdf, _, g_part, g_pf = run_frames(cfg, frames, dev, cap, 3,
+                                                  n=CPU_FRAMES)
+    c_state, c_esdf, _, c_part, c_pf = run_frames(cfg, upload(cpu), cpu, cap,
+                                                  3, n=CPU_FRAMES)
+    require(int(g_state.num_blocks) == int(c_state.num_blocks), "num_blocks")
+    require(torch.equal(g_state.table.cpu(), c_state.table), "block table")
+    require(torch.equal(g_state.channels["TSDF_observed"].cpu(),
+                        c_state.channels["TSDF_observed"]), "observed")
+    e_tsdf = float((g_state.channels["TSDF"].cpu().float() -
+                    c_state.channels["TSDF"].float()).abs().max())
+    require(e_tsdf <= 4e-3, f"TSDF card vs CPU {e_tsdf}")
+    require(torch.equal(g_part.cpu(), c_part), "ESDF observed mask")
+    e_esdf = float((g_esdf.cpu() - c_esdf)[c_part].abs().max())
+    require(e_esdf <= 4e-3, f"ESDF card vs CPU {e_esdf}")
+    require(np.array_equal(g_pf[:, 5], c_pf[:, 5]), "sweep counts")
+    log(f"[phase4] card vs CPU over {CPU_FRAMES} frames: TSDF max abs "
+        f"{e_tsdf} ESDF max abs {e_esdf} sweeps {g_pf[:, 5].tolist()}")
+
+    # ---- phase 5 ----------------------------------------------------------
+    from taichislam_tpu_torch.models.dense_esdf import DenseESDF
+    before = (k1.segmented_block_reduce.launches,
+              ks.esdf_sweep_loop.launches)
+    m = DenseESDF(map_scale=[10, 10], voxel_scale=0.05, max_ray_length=3.0,
+                  max_blocks=2048, max_bins=8192, max_submap_num=64,
+                  storage_dtype="float16", esdf_dense_max_voxels=0,
+                  max_esdf_sweeps=3, esdf_raise_slack_voxels=0.5,
+                  device=dev)
+    m.set_dep_camera_intrinsic(K)
+    for f in range(4):
+        m.recast_depth_to_map(Rs[f], Ts[f], depth[f], None)
+    n_act = m.count_active()
+    require(n_act > 0, "model map empty")
+    require(bool(torch.isfinite(m.esdf[m.esdf_observed]).all()),
+            "model ESDF not finite")
+    require(k1.segmented_block_reduce.launches > before[0] and
+            ks.esdf_sweep_loop.launches > before[1], "model kernels")
+    log(f"[phase5] DenseESDF: {n_act} active voxels, last sweeps "
+        f"{m.last_esdf_sweeps}, last dirty {m.last_esdf_dirty}")
+
+    src = "taichislam_tpu_torch/csrc/"
+    table = [("seg_accum (K1)", "K1", src + "seg_accum.cu",
+              "taichislam_tpu/ops/pallas/seg_accum.py:153"),
+             ("esdf_sweep (K2)", "K2", src + "esdf_sweep.cu",
+              "taichislam_tpu/ops/pallas/esdf_sweep.py:588"),
+             ("esdf_sweep_loop (K3)", "K3", src + "esdf_sweep.cu",
+              "taichislam_tpu/ops/pallas/esdf_sweep.py:489")]
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": path, "replaces": rep,
+         "launches": launches[key], **results[key]}
+        for name, key, path, rep in table]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,35 @@
+"""Jet colormap lookup table.
+
+The JAX package samples matplotlib's ``cm.jet`` into a 1024-entry LUT. The
+same table is built here from jet's published segment data with numpy, so
+the port needs no matplotlib: matplotlib quantizes a colormap to N = 256
+entries, interpolated linearly between the segment points, and looks a
+float x up at entry ``int(x * 256)``.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+
+# matplotlib's _jet_data (x, value) breakpoints per channel
+_JET = (
+    ((0.0, 0.0), (0.35, 0.0), (0.66, 1.0), (0.89, 1.0), (1.0, 0.5)),
+    ((0.0, 0.0), (0.125, 0.0), (0.375, 1.0), (0.64, 1.0), (0.91, 0.0),
+     (1.0, 0.0)),
+    ((0.0, 0.5), (0.11, 1.0), (0.34, 1.0), (0.65, 0.0), (1.0, 0.0)),
+)
+_MPL_N = 256
+
+
+@functools.lru_cache(maxsize=1)
+def jet_lut_np(n: int = 1024) -> np.ndarray:
+    """(n, 3) float32 jet LUT, entry i = jet(i / n)."""
+    x = np.linspace(0.0, 1.0, _MPL_N)
+    base = np.stack([np.clip(np.interp(x, [p[0] for p in seg],
+                                       [p[1] for p in seg]), 0.0, 1.0)
+                     for seg in _JET], axis=1)
+    idx = np.minimum((np.arange(n) / float(n) * _MPL_N).astype(np.int64),
+                     _MPL_N - 1)
+    return base[idx].astype(np.float32)

@@ -1,0 +1,24 @@
+"""Prefix-sum stream compaction (deterministic, linear-index order)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def compact_mask(mask: torch.Tensor, capacity: int):
+    """Return (positions, kept, count) for compacting ``mask`` into
+    ``capacity`` slots.
+
+    ``positions[i]`` is the output index of element i when ``mask[i]`` and
+    it fits in ``capacity``; otherwise ``capacity``. ``kept`` and ``count``
+    are 0-d int32 tensors (``count`` may exceed ``capacity``).
+    """
+    mask = mask.reshape(-1)
+    idx = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32) - 1
+    if mask.numel() > 0:
+        count = idx[-1] + 1
+    else:
+        count = torch.zeros((), dtype=torch.int32, device=mask.device)
+    pos = torch.where(mask & (idx < capacity), idx,
+                      torch.full_like(idx, capacity))
+    return pos, torch.clamp(count, max=capacity), count

@@ -1,0 +1,165 @@
+"""Block voxel grid: direct-mapped block table plus flat channel arrays.
+
+Same layout as ``taichislam_tpu.core.grid``: an int32 table over the
+bounded block-coordinate space (-1 = unallocated), channels of shape
+``(max_blocks + 1[, C], V^3)`` whose last row is a garbage row, and
+allocation as an exclusive prefix sum (deterministic, no atomics).
+
+Unlike the JAX functions, which return new arrays, the allocation and
+scatter functions here update the state's tensors IN PLACE and return the
+state (tuples of tensors are cheap to rebuild; the channels are not).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Tuple
+
+import torch
+
+from taichislam_tpu_torch.core.config import GridSpec
+
+
+class GridState(NamedTuple):
+    """One block voxel grid.
+
+    Attributes:
+        table: int32 (num_submaps * blocks_per_submap,) block coord -> slot.
+        block_coords: int32 (max_blocks + 1, 4) slot -> (s, bi, bj, bk).
+        block_active: bool (max_blocks + 1,).
+        num_blocks: int32 0-d tensor, allocated slot count.
+        alloc_overflow: int32 0-d tensor, dropped allocations.
+        channels: dict name -> (max_blocks + 1[, C], V^3) tensors.
+    """
+
+    table: torch.Tensor
+    block_coords: torch.Tensor
+    block_active: torch.Tensor
+    num_blocks: torch.Tensor
+    alloc_overflow: torch.Tensor
+    channels: Dict[str, torch.Tensor]
+
+
+def make_grid_state(spec: GridSpec, channel_defs: Dict[str, Tuple],
+                    device=None) -> GridState:
+    """Empty grid; ``channel_defs`` maps name -> (torch dtype, extra_shape)."""
+    nb = spec.max_blocks + 1
+    channels = {
+        name: torch.zeros((nb,) + tuple(extra) + (spec.voxels_per_block,),
+                          dtype=dtype, device=device)
+        for name, (dtype, extra) in channel_defs.items()
+    }
+    i32 = dict(dtype=torch.int32, device=device)
+    return GridState(
+        table=torch.full((spec.table_size,), -1, **i32),
+        block_coords=torch.full((nb, 4), -1, **i32),
+        block_active=torch.zeros((nb,), dtype=torch.bool, device=device),
+        num_blocks=torch.zeros((), **i32),
+        alloc_overflow=torch.zeros((), **i32),
+        channels=channels,
+    )
+
+
+def voxel_to_block_c(spec: GridSpec, s, vi, vj, vk):
+    """Signed voxel coords (component tensors) -> (block_lin, intra_lin,
+    in_bounds); ``block_lin`` is -1 out of bounds."""
+    V = spec.V
+    o = spec.origin_voxel
+    ui = vi - o[0]
+    uj = vj - o[1]
+    uk = vk - o[2]
+    inb = ((ui >= 0) & (ui < spec.N) & (uj >= 0) & (uj < spec.N) &
+           (uk >= 0) & (uk < spec.Nz))
+    inb = inb & (s >= 0) & (s < spec.num_submaps)
+    bi = torch.div(ui, V, rounding_mode="floor")
+    bj = torch.div(uj, V, rounding_mode="floor")
+    bk = torch.div(uk, V, rounding_mode="floor")
+    ii, ij, ik = ui - bi * V, uj - bj * V, uk - bk * V
+    blin = (bi * spec.bn_xy + bj) * spec.bn_z + bk + \
+        s * spec.blocks_per_submap
+    blin = torch.where(inb, blin, torch.full_like(blin, -1))
+    intra_lin = (ii * V + ij) * V + ik
+    return blin, intra_lin, inb
+
+
+def block_lin_to_coords(spec: GridSpec, blin: torch.Tensor) -> torch.Tensor:
+    """Linear block id -> (s, bi, bj, bk) int32 stack (..., 4)."""
+    bps = spec.blocks_per_submap
+    plane = spec.bn_xy * spec.bn_z
+    s = torch.div(blin, bps, rounding_mode="floor")
+    r = blin - s * bps
+    bi = torch.div(r, plane, rounding_mode="floor")
+    r2 = r - bi * plane
+    bj = torch.div(r2, spec.bn_z, rounding_mode="floor")
+    bk = r2 - bj * spec.bn_z
+    return torch.stack([s, bi, bj, bk], dim=-1).to(torch.int32)
+
+
+def lookup_slots(spec: GridSpec, table: torch.Tensor,
+                 blin: torch.Tensor) -> torch.Tensor:
+    """Slots of linear block ids; misses map to the garbage slot."""
+    slot = table[blin.clamp(0, spec.table_size - 1).long()]
+    return torch.where((blin < 0) | (slot < 0),
+                       torch.full_like(slot, spec.max_blocks), slot)
+
+
+def flat_voxel_index(spec: GridSpec, slot, intra_lin):
+    """Address into a channel viewed as ((max_blocks+1) * V^3,)."""
+    return slot * spec.voxels_per_block + intra_lin
+
+
+def allocate_blocks(spec: GridSpec, state: GridState, cand_blin: torch.Tensor,
+                    cand_valid: torch.Tensor, submap_id: int) -> GridState:
+    """Allocate storage for every valid candidate block of submap
+    ``submap_id`` (global linear ids) through a touched bitmap over the
+    submap's table region. In place; returns the updated state."""
+    bps = spec.blocks_per_submap
+    lo = int(submap_id) * bps
+    rel = cand_blin.reshape(-1) - lo
+    bad = (~cand_valid.reshape(-1)) | (rel < 0) | (rel >= bps)
+    rel = torch.where(bad, torch.full_like(rel, bps), rel)
+    touched = torch.zeros((bps + 1,), dtype=torch.bool,
+                          device=cand_blin.device)
+    touched[rel.long()] = True
+    return allocate_from_touched(spec, state, touched[:bps], lo)
+
+
+def allocate_from_touched(spec: GridSpec, state: GridState,
+                          touched: torch.Tensor, lo: int) -> GridState:
+    """Allocate every block marked in ``touched`` (a bitmap over the table
+    region starting at ``lo``): new slots from an exclusive prefix sum.
+    In place; returns the updated state."""
+    bps = touched.shape[0]
+    region = state.table[lo:lo + bps]
+    new_mask = touched & (region < 0)
+    offs = torch.cumsum(new_mask.to(torch.int32), 0, dtype=torch.int32) - 1
+    slot = state.num_blocks + offs
+    ok = new_mask & (slot < spec.max_blocks)
+    region.copy_(torch.where(ok, slot, region))
+
+    # new slots' coords and active flags; misses land on the garbage row,
+    # which is restored afterwards
+    garbage = spec.max_blocks
+    tgt = torch.where(ok, slot, torch.full_like(slot, garbage)).long()
+    lin_ids = lo + torch.arange(bps, dtype=torch.int32,
+                                device=touched.device)
+    state.block_coords[tgt] = block_lin_to_coords(spec, lin_ids)
+    state.block_active[tgt] = True
+    state.block_coords[garbage] = -1
+    state.block_active[garbage] = False
+
+    n_new = new_mask.sum(dtype=torch.int32)
+    n_fit = torch.clamp(torch.minimum(n_new, spec.max_blocks -
+                                      state.num_blocks), min=0)
+    return state._replace(num_blocks=state.num_blocks + n_fit,
+                          alloc_overflow=state.alloc_overflow +
+                          (n_new - n_fit))
+
+
+def scatter_max(channel: torch.Tensor, flat_idx: torch.Tensor,
+                values: torch.Tensor) -> torch.Tensor:
+    """``channel.flat[flat_idx] = max(channel.flat[flat_idx], values)``,
+    in place (every index must lie inside the channel)."""
+    flat = channel.view(-1)
+    flat.scatter_reduce_(0, flat_idx.reshape(-1).long(),
+                         values.reshape(-1).to(flat.dtype), reduce="amax")
+    return channel

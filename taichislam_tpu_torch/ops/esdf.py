@@ -1,0 +1,368 @@
+"""Incremental ESDF by masked Jacobi sweeps, block mode (PyTorch).
+
+Counterpart of ``taichislam_tpu.ops.esdf`` for the per-frame block path:
+``esdf_seed_dirty`` (updated-voxel gating) and ``esdf_update`` over a
+compacted working set (the dirty blocks plus a frozen rim, Morton-ordered
+rows), swept in the lane-fused layout ``(rows, W, W*W)`` =
+``[j | i*W + k]``, W = V + 2. See the JAX module for the algorithm.
+
+Dispatch follows the JAX path: the loop kernel K3 runs whenever
+``max_sweeps >= 2`` and ``esdf_force_sweeps`` is off, the per-sweep kernel
+K2 otherwise. The XLA sweep body and the dense/window modes are not ported.
+
+``esdf_seed_dirty`` updates ``seen_tsdf`` / ``seen_obs`` in place;
+``esdf_update`` updates ``prev_esdf`` / ``prev_fixed`` in place and returns
+them.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from taichislam_tpu_torch.core.compaction import compact_mask
+from taichislam_tpu_torch.core.config import TSDFConfig
+from taichislam_tpu_torch.core.grid import lookup_slots
+from taichislam_tpu_torch.ops.kernels.esdf_sweep import (ENC_BIG,
+                                                         esdf_sweep,
+                                                         esdf_sweep_loop)
+
+# face-neighbour column ids in the (27, n) table: c = ((di+1)*3+(dj+1))*3+dk+1
+_C_IM, _C_IP = 4, 22
+_C_JM, _C_JP = 10, 16
+_C_KM, _C_KP = 12, 14
+
+
+def neighbor_slot_cols(spec, state, rows):
+    """(27, n) storage slot of each listed block's 26 neighbours (+ itself),
+    column c = ((di+1)*3 + (dj+1))*3 + (dk+1); missing neighbours map to
+    the garbage slot."""
+    bc = state.block_coords[rows.long()]
+    s, bi, bj, bk = bc[:, 0], bc[:, 1], bc[:, 2], bc[:, 3]
+    base = s * spec.blocks_per_submap
+    cols = []
+    for di in (-1, 0, 1):
+        ni = bi + di
+        ok_i = (s >= 0) & (ni >= 0) & (ni < spec.bn_xy)
+        for dj in (-1, 0, 1):
+            nj = bj + dj
+            ok_j = ok_i & (nj >= 0) & (nj < spec.bn_xy)
+            for dk in (-1, 0, 1):
+                nk = bk + dk
+                ok = ok_j & (nk >= 0) & (nk < spec.bn_z)
+                blin = (ni * spec.bn_xy + nj) * spec.bn_z + nk + base
+                cols.append(torch.where(ok, blin, torch.full_like(blin, -1)))
+    return lookup_slots(spec, state.table, torch.stack(cols, dim=0))
+
+
+def _part1by2(x):
+    """Spread the low 10 bits of x to every third bit (Morton helper)."""
+    x = x & 0x3FF
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    x = (x | (x << 2)) & 0x09249249
+    return x
+
+
+def morton_order_rows(slot_of, bvalid, n_upd, block_coords):
+    """Permute the compact row list into Morton order within each group
+    (updatable prefix / frozen rim / invalid). Exact: the Jacobi sweep is
+    order-independent across rows; only the slab gates see the order."""
+    cap = slot_of.shape[0]
+    c = block_coords[slot_of.long()].long()
+    key = (_part1by2(c[:, 1]) | (_part1by2(c[:, 2]) << 1)
+           | (_part1by2(c[:, 3]) << 2))
+    cpos = torch.arange(cap, device=slot_of.device)
+    grp = torch.where(cpos < n_upd, 0, 1)
+    grp = torch.where(bvalid, grp, 2)
+    key = torch.where(bvalid, key, 0)
+    _, perm = torch.sort(grp * (1 << 31) + key, stable=True)
+    return slot_of[perm]
+
+
+def _to_sweep_layout(tiles, V, fill):
+    """(n, V^3) flat [i,j,k] tiles -> (n, V+2, (V+2)**2) [j | i*(V+2)+k]
+    with ``fill`` in the halo positions."""
+    n, W = tiles.shape[0], V + 2
+    out = torch.full((n, W, W, W), fill, dtype=tiles.dtype,
+                     device=tiles.device)
+    out[:, 1:V + 1, 1:V + 1, 1:V + 1] = tiles.reshape(n, V, V, V).permute(
+        0, 2, 1, 3)
+    return out.reshape(n, W, W * W)
+
+
+def _from_sweep_layout(H, V):
+    n, W = H.shape[0], V + 2
+    t = H.reshape(n, W, W, W)[:, 1:V + 1, 1:V + 1, 1:V + 1]
+    return t.permute(0, 2, 1, 3).reshape(n, V * V * V)
+
+
+def _assemble_sweep(H, nsl, V):
+    """Fill the halo shells of sweep-layout ``H`` from neighbour rows, IN
+    PLACE. ``nsl`` is the (27, n) compact neighbour table (garbage row for
+    missing neighbours, whose values must already be the fill). Axis passes
+    run i -> j -> k, so each pass reads shells the earlier passes filled and
+    all diagonals arrive through face exchanges."""
+    n, W = H.shape[0], V + 2
+    H4 = H.view(n, W, W, W)  # (row, j, i, k)
+    nl = nsl.long()
+    H4[:, :, 0, :] = H4[:, :, V, :][nl[_C_IM]]
+    H4[:, :, V + 1, :] = H4[:, :, 1, :][nl[_C_IP]]
+    H4[:, 0, :, :] = H4[:, V, :, :][nl[_C_JM]]
+    H4[:, V + 1, :, :] = H4[:, 1, :, :][nl[_C_JP]]
+    H4[:, :, :, 0] = H4[:, :, :, V][nl[_C_KM]]
+    H4[:, :, :, V + 1] = H4[:, :, :, 1][nl[_C_KP]]
+    return H
+
+
+@functools.lru_cache(maxsize=8)
+def _shell_mask(V, device):
+    """(V^3,) bool: voxels on a block's 1-voxel boundary shell (cached on
+    the device, so the update copies nothing from the host)."""
+    i, j, k = np.meshgrid(*([np.arange(V)] * 3), indexing="ij")
+    edge = (i == 0) | (i == V - 1) | (j == 0) | (j == V - 1) | \
+        (k == 0) | (k == V - 1)
+    return torch.from_numpy(edge.reshape(-1)).to(device)
+
+
+def _compact_rows(mask, cap, nb):
+    """Row list of the first ``cap`` set entries of ``mask`` (garbage slot
+    nb-1 after them), plus kept / total counts."""
+    pos, kept, total = compact_mask(mask, cap)
+    rows = torch.full((cap + 1,), nb - 1, dtype=torch.int32,
+                      device=mask.device)
+    rows[pos.long()] = torch.arange(mask.shape[0], dtype=torch.int32,
+                                    device=mask.device)
+    return rows, kept, total
+
+
+def esdf_seed_dirty(cfg: TSDFConfig, state, seen_tsdf, seen_obs, touched,
+                    touched_cap: int = 512):
+    """Updated-voxel gating: of the frame-``touched`` blocks, those where
+    some voxel's TSDF moved more than ``esdf_seed_eps_voxels`` voxels (or an
+    observed flag flipped) since the ESDF last consumed them are dirty;
+    dirty rows refresh the snapshots. Rows above ``touched_cap`` are dirty
+    uncompared. Returns (dirty, seen_tsdf, seen_obs); the snapshots are
+    updated in place."""
+    nb = cfg.grid.max_blocks + 1
+    eps = float(np.float32(max(cfg.esdf_seed_eps_voxels, 0.0) *
+                           cfg.voxel_scale))
+    touched = touched.clone()
+    touched[-1] = False
+    rows, kept, _ = _compact_rows(touched, touched_cap, nb)
+    rows = rows[:touched_cap].long()
+    valid = torch.arange(touched_cap, device=touched.device) < kept
+
+    tsdf_r = state.channels["TSDF"][rows].float()
+    obs_r = state.channels["TSDF_observed"][rows] > 0
+    seen_t_r = seen_tsdf[rows]
+    seen_o_r = seen_obs[rows]
+    diff_r = (((tsdf_r - seen_t_r).abs() > eps) |
+              (obs_r != seen_o_r)).any(dim=1) & valid
+
+    tgt = torch.where(diff_r, rows, nb - 1)
+    dirty = torch.zeros((nb,), dtype=torch.bool, device=touched.device)
+    dirty[tgt] = True
+    covered = torch.zeros_like(dirty)
+    covered[rows] = valid
+    dirty = dirty | (touched & ~covered)
+    dirty[-1] = False
+    seen_tsdf[tgt] = torch.where(diff_r[:, None], tsdf_r, seen_t_r)
+    seen_tsdf[nb - 1] = 0.0
+    seen_obs[tgt] = torch.where(diff_r[:, None], obs_r, seen_o_r)
+    seen_obs[nb - 1] = False
+    return dirty, seen_tsdf, seen_obs
+
+
+def esdf_update(cfg: TSDFConfig, max_sweeps: int, block_cap: int, state,
+                prev_esdf, prev_fixed, active_submap: int, dirty_blocks=None,
+                tsdf_src=None, obs_src=None):
+    """ESDF over the active submap's observed voxels, block mode.
+
+    Without ``dirty_blocks`` the working set is every active block; with it,
+    the dirty blocks plus their 26-ring as a frozen (Dirichlet) rim.
+    ``tsdf_src`` / ``obs_src`` replace the live channels as the seed source
+    (the consume-once snapshots of ``esdf_seed_dirty``).
+
+    Returns (esdf, fixed, observed_mask, sweeps_run, changed_blocks,
+    block_cap_overflow); ``esdf`` and ``fixed`` are ``prev_esdf`` and
+    ``prev_fixed`` updated in place. Counts are 0-d int32 tensors.
+    """
+    spec = cfg.grid
+    V = spec.V
+    nb = spec.max_blocks + 1
+    dev = prev_esdf.device
+    gamma = cfg.voxel_scale
+    max_ray = cfg.max_ray_length
+    s_id = int(active_submap)
+    cap = block_cap
+
+    tsdf_full = state.channels["TSDF"] if tsdf_src is None else tsdf_src
+    obs_full = (state.channels["TSDF_observed"] > 0 if obs_src is None
+                else obs_src)
+    blk = state.block_active & (state.block_coords[:, 0] == s_id)
+    blk[-1] = False
+    participate_full = obs_full & blk[:, None]
+
+    # compact rows padded once to a multiple of the 8-row slab
+    NROWS = cap + 1 + ((-(cap + 1)) % 8)
+    ar_cap = torch.arange(cap, device=dev)
+
+    if dirty_blocks is None:
+        work_blk = blk
+        slot_of, bkept, btotal = _compact_rows(blk, cap, nb)
+        slot_of = slot_of[:cap]
+        bvalid = ar_cap < bkept
+        n_upd = bkept
+        overflow_in = torch.clamp(btotal - cap, min=0)
+        ns_flat = rows_d = validD = None
+    else:
+        # the dirty blocks themselves are updatable; their 26-ring is a
+        # frozen rim. Rows are ordered dirty-first so rim slabs skip compute.
+        dirty = dirty_blocks.clone()
+        dirty[-1] = False
+        work_blk = blk & dirty
+        rows_d, keptD, totalD = _compact_rows(work_blk, cap, nb)
+        rows_d = rows_d[:cap]
+        validD = ar_cap < keptD
+        ns_d = neighbor_slot_cols(spec, state, rows_d)
+        ns_flat = torch.where(validD[None, :], ns_d, nb - 1)   # (27, cap)
+        srt, _ = torch.sort(ns_flat.reshape(-1))
+        head = (srt < nb - 1) & torch.cat(
+            [torch.ones(1, dtype=torch.bool, device=dev), srt[1:] != srt[:-1]])
+        head &= ~work_blk[srt.long()]
+        posR, keptR, totalR = compact_mask(head, cap)
+        posR = torch.where(posR < cap, posR + keptD, cap)
+        slot_of = torch.full((cap + 1,), nb - 1, dtype=torch.int32,
+                             device=dev)
+        slot_of[:cap] = rows_d
+        slot_of[torch.clamp(posR, max=cap).long()] = torch.where(
+            head, srt, nb - 1).to(torch.int32)
+        slot_of = slot_of[:cap]
+        keptS = torch.clamp(keptD + keptR, max=cap)
+        bvalid = ar_cap < keptS
+        n_upd = keptD
+        overflow_in = torch.clamp(torch.maximum(totalD, totalD + totalR) -
+                                  cap, min=0)
+
+    slot_of = morton_order_rows(slot_of, bvalid, n_upd, state.block_coords)
+    slot_l = slot_of.long()
+
+    # global slot -> compact index (garbage rows -> cap)
+    inv = torch.full((nb,), cap, dtype=torch.int32, device=dev)
+    inv[slot_l] = torch.where(bvalid, ar_cap.to(torch.int32), cap)
+
+    def gcomp(arr, fill):
+        out = torch.where(bvalid[:, None], arr[slot_l],
+                          torch.full((), fill, dtype=arr.dtype, device=dev))
+        pad = torch.full((NROWS - cap,) + tuple(out.shape[1:]), fill,
+                         dtype=arr.dtype, device=dev)
+        return torch.cat([out, pad], dim=0)
+
+    tsdf = gcomp(tsdf_full, 0).float()
+    participate = gcomp(participate_full, False)
+    prev_e = gcomp(prev_esdf, 0.0)
+    prev_f = gcomp(prev_fixed, 0)
+
+    fixed = participate & (tsdf.abs() < float(np.float32(gamma)))
+    sgn = (tsdf > 0).float() - (tsdf < 0).float()
+    seed = torch.where(fixed, tsdf, sgn * max_ray)
+    prev_ok = (torch.sign(prev_e) == torch.sign(seed)) & participate & \
+        (prev_e != 0) & ~((prev_f > 0) & ~fixed)
+    esdf0 = torch.where(fixed, seed,
+                        torch.where(prev_ok,
+                                    torch.clamp(prev_e, -max_ray, max_ray),
+                                    seed))
+    esdf0 = torch.where(participate, esdf0, 0.0)
+
+    nslots = inv[neighbor_slot_cols(spec, state, slot_of).long()]
+    nslots = torch.where(bvalid[None, :], nslots, cap)
+    nslots = torch.cat([nslots, torch.full((27, NROWS - cap), cap,
+                                           dtype=torch.int32, device=dev)],
+                       dim=1).contiguous()                  # (27, NROWS)
+
+    updatable = work_blk[slot_l] & bvalid
+    updatable = torch.cat([updatable, torch.zeros((NROWS - cap,),
+                                                  dtype=torch.bool,
+                                                  device=dev)])
+
+    esdf0_h = _to_sweep_layout(esdf0, V, 0.0)
+    enc_hh = _assemble_sweep(_to_sweep_layout(
+        torch.where(participate, tsdf, ENC_BIG), V, ENC_BIG), nslots, V)
+    eps = max(cfg.esdf_raise_slack_voxels * cfg.voxel_scale, 1e-4)
+    kw = dict(V=V, v1=cfg.voxel_scale, gamma=gamma, eps=eps, max_ray=max_ray)
+
+    if max_sweeps >= 2 and not cfg.esdf_force_sweeps:
+        ss = max_sweeps if cfg.esdf_scan_sweeps < 0 else cfg.esdf_scan_sweeps
+        esdf_h, lstats = esdf_sweep_loop(
+            esdf0_h, enc_hh, nslots, updatable.to(torch.int32),
+            eps_conv=cfg.esdf_converge_eps, max_sweeps=max_sweeps,
+            scan_sweeps=ss, scan_period=cfg.esdf_scan_period, **kw)
+        sweeps = lstats[0]
+    else:
+        # per-sweep path: the sweep counter advances only while the field
+        # still changes; converged sweeps pass through (all slabs idle)
+        pos_side = participate & ~fixed & (tsdf >= 0) & updatable[:, None]
+        neg_side = participate & ~fixed & (tsdf < 0) & updatable[:, None]
+        side_hh = (_to_sweep_layout(pos_side, V, False).to(torch.int8) -
+                   _to_sweep_layout(neg_side, V, False).to(torch.int8))
+        upd_prefix = torch.arange(NROWS, device=dev) < n_upd
+        esdf_h = esdf0_h
+        changed = torch.ones((), dtype=torch.bool, device=dev)
+        sweeps = torch.zeros((), dtype=torch.int32, device=dev)
+        act = torch.ones((NROWS,), dtype=torch.bool, device=dev)
+        nsl_l = nslots.long()
+        for s in range(max_sweeps):
+            eh = _assemble_sweep(esdf_h, nslots, V)
+            slab_act = (act & upd_prefix).view(-1, 8).any(dim=1).to(
+                torch.int32)
+            scan = cfg.esdf_scan_sweeps < 0 or s < cfg.esdf_scan_sweeps or (
+                cfg.esdf_scan_period > 0 and s % cfg.esdf_scan_period == 0)
+            new = esdf_sweep(eh, enc_hh, side_hh, slab_act, with_scans=scan,
+                             **kw)
+            diff_rows = ((new - eh).abs() >
+                         float(np.float32(cfg.esdf_converge_eps))
+                         ).any(dim=2).any(dim=1)
+            act_next = diff_rows | diff_rows[nsl_l].any(dim=0)
+            changed_next = diff_rows.any()
+            if cfg.esdf_force_sweeps:
+                changed_next = torch.ones_like(changed_next)
+                act_next = torch.ones_like(act_next)
+            sweeps = sweeps + changed.to(torch.int32)
+            esdf_h, changed, act = new, changed_next, act_next
+    esdf_c = _from_sweep_layout(esdf_h, V)
+
+    # scatter back; rows outside the working set keep their previous
+    # values. Non-updatable rows aim at the garbage row, restored after.
+    g = nb - 1
+    tgt = torch.where(updatable[:cap], slot_l, g)
+    keep_e, keep_f = prev_esdf[g].clone(), prev_fixed[g].clone()
+    prev_esdf[tgt] = torch.where(participate[:cap], esdf_c[:cap], 0.0)
+    prev_fixed[tgt] = (participate[:cap] & fixed[:cap]).to(prev_fixed.dtype)
+    prev_esdf[g] = keep_e
+    prev_fixed[g] = keep_f
+
+    # re-queue: changed rows re-enter; a changed boundary shell also
+    # re-queues the block's 26 neighbours
+    diff = ((esdf_c - prev_e).abs() > float(np.float32(
+        cfg.esdf_converge_eps))) | (fixed != (prev_f > 0))
+    row_changed = diff.any(dim=1)
+    changed_blocks = torch.zeros((nb,), dtype=torch.bool, device=dev)
+    changed_blocks[tgt] = row_changed[:cap]
+    changed_blocks[-1] = False
+    if dirty_blocks is not None:
+        shell = _shell_mask(V, dev)
+        shell_changed = (diff & shell[None, :]).any(dim=1)
+        tgtD = torch.where(validD, inv[rows_d.long()], cap)
+        shell_d = shell_changed[torch.clamp(tgtD, max=NROWS - 1).long()] & \
+            validD
+        tgt27 = torch.where(shell_d[None, :], ns_flat, nb - 1)
+        shell_blocks = torch.zeros((nb,), dtype=torch.bool, device=dev)
+        shell_blocks[tgt27.reshape(-1).long()] = True
+        changed_blocks = changed_blocks | (blk & shell_blocks)
+        changed_blocks[-1] = False
+    return (prev_esdf, prev_fixed, participate_full, sweeps, changed_blocks,
+            overflow_in)

@@ -1,0 +1,367 @@
+"""K2 / K3: ESDF relaxation sweeps (CUDA kernels + plain twins).
+
+Counterparts of ``taichislam_tpu.ops.pallas.esdf_sweep``:
+
+- ``esdf_sweep`` (K2, ``esdf_sweep_pallas``): one Jacobi sweep over the
+  halo-assembled sweep layout ``(N, W, W*W)`` = ``[j | i*W + k]``,
+  W = V + 2, with an 8-row slab activity gate;
+- ``esdf_sweep_loop`` (K3, ``esdf_sweep_loop_pallas``): the whole sweep
+  loop with in-place halo-shell exchange, slab gates and a convergence
+  exit, returning ``[sweeps_run, changed_at_exit, computed_slabs,
+  shell_rows]``.
+
+Both kernels are in ``csrc/esdf_sweep.cu``. ``esdf_sweep_ref`` and
+``esdf_sweep_loop_ref`` are plain PyTorch versions with the same
+signatures; the wrappers take them only for CPU tensors. The update side
+mask must be zero on halo positions (interior-only), as in the JAX
+package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+BIG = 1e9
+# participation encoding: enc = TSDF where observed-and-active, ENC_BIG
+# otherwise (far outside any TSDF value)
+ENC_BIG = 1e6
+R = 8  # rows per activity slab
+
+
+def _f32(x: float) -> float:
+    """Round a constant to f32 once, so every comparison and arithmetic
+    step sees the value the JAX package's ``jnp.float32`` constant has."""
+    return float(np.float32(x))
+
+
+def _consts(v1, gamma, eps, max_ray):
+    return (_f32(v1), _f32(np.sqrt(2.0) * v1), _f32(np.sqrt(3.0) * v1),
+            _f32(gamma), _f32(eps), _f32(max_ray))
+
+
+def _lsh(x, s, fill):
+    """out[..., l] = x[..., l + s] within each row, vacated lanes = fill."""
+    if s == 0:
+        return x
+    pad = torch.full(x.shape[:-1] + (abs(s),), fill, dtype=x.dtype,
+                     device=x.device)
+    if s > 0:
+        return torch.cat([x[..., s:], pad], dim=-1)
+    return torch.cat([pad, x[..., :s]], dim=-1)
+
+
+def _jsh(x, s, fill):
+    """out[:, j] = x[:, j + s], vacated rows = fill."""
+    if s == 0:
+        return x
+    pad = torch.full((x.shape[0], abs(s), x.shape[2]), fill, dtype=x.dtype,
+                     device=x.device)
+    if s > 0:
+        return torch.cat([x[:, s:, :], pad], dim=1)
+    return torch.cat([pad, x[:, :s, :]], dim=1)
+
+
+def sweep_math(h, enc, side, *, W: int, v1: float, gamma: float, eps: float,
+               max_ray: float, with_scans: bool):
+    """One relaxation-sweep update of rows ``h`` (N, W, W*W) with halos
+    assembled; ``side`` is the +1/-1/0 update side (any dtype). Plain
+    PyTorch form of the Pallas ``_sweep_math``."""
+    v1f, v2f, v3f, gammaf, epsf, mrf = _consts(v1, gamma, eps, max_ray)
+    obs = enc < ENC_BIG * 0.5
+    tsdf = torch.where(obs, enc, 0.0)
+    fixed = (tsdf.abs() < gammaf) & obs
+    psrc = torch.where(tsdf >= gammaf, obs, fixed)
+    nsrc = torch.where(tsdf <= -gammaf, obs, fixed)
+
+    def extrema(x, op, fill):
+        ai = op(_lsh(x, W, fill), _lsh(x, -W, fill))
+        aj = op(_jsh(x, 1, fill), _jsh(x, -1, fill))
+        ak = op(_lsh(x, 1, fill), _lsh(x, -1, fill))
+        faces = op(op(ai, aj), ak)
+        eij = op(_jsh(ai, 1, fill), _jsh(ai, -1, fill))
+        eik = op(_lsh(ai, 1, fill), _lsh(ai, -1, fill))
+        ejk = op(_lsh(aj, 1, fill), _lsh(aj, -1, fill))
+        edges = op(op(eij, eik), ejk)
+        corners = op(_lsh(eij, 1, fill), _lsh(eij, -1, fill))
+        return faces, edges, corners
+
+    lo = torch.where(psrc, h, BIG)
+    hi = torch.where(nsrc, h, -BIG)
+    fl, el, cl = extrema(lo, torch.minimum, BIG)
+    fh, eh, ch = extrema(hi, torch.maximum, -BIG)
+    cand_lo = torch.minimum(torch.minimum(fl + v1f, el + v2f), cl + v3f)
+    cand_hi = torch.maximum(torch.maximum(fh - v1f, eh - v2f), ch - v3f)
+
+    if with_scans:
+        n_steps = max(1, int(np.ceil(np.log2(W))))
+        lane = torch.arange(W * W, device=h.device)
+        k_pos = (lane % W).float().view(1, 1, -1)
+        i_pos = (lane // W).float().view(1, 1, -1)
+        j_pos = torch.arange(W, device=h.device).float().view(1, W, 1)
+
+        def dbl(w, brk, shift_fn):
+            """Inclusive segmented min by Hillis-Steele doubling."""
+            m, b = w, brk
+            s = 1
+            for _ in range(n_steps):
+                m = torch.minimum(m, torch.where(b, BIG, shift_fn(m, s, BIG)))
+                b = b | shift_fn(b, s, True)
+                s *= 2
+            return m
+
+        def scans(x, brk):
+            out = torch.full_like(x, BIG)
+            for pos, step, lane_axis in ((k_pos, 1, True), (i_pos, W, True),
+                                         (j_pos, 1, False)):
+                if lane_axis:
+                    def sh_f(xx, s, f, step=step):
+                        return _lsh(xx, -s * step, f)
+
+                    def sh_b(xx, s, f, step=step):
+                        return _lsh(xx, s * step, f)
+                else:
+                    def sh_f(xx, s, f):
+                        return _jsh(xx, -s, f)
+
+                    def sh_b(xx, s, f):
+                        return _jsh(xx, s, f)
+                pv = pos * v1f
+                brk_f = brk | (pos == 0.0)
+                brk_b = brk | (pos == float(W - 1))
+                incl_f = dbl(x - pv, brk_f, sh_f) + pv
+                incl_b = dbl(x + pv, brk_b, sh_b) - pv
+                out = torch.minimum(out, torch.minimum(
+                    sh_f(incl_f, 1, BIG) + v1f, sh_b(incl_b, 1, BIG) + v1f))
+            return out
+
+        cand_lo = torch.minimum(cand_lo, scans(lo, ~psrc | fixed))
+        cand_hi = torch.maximum(cand_hi, -scans(-hi, ~nsrc | fixed))
+
+    new = torch.where(cand_lo <= h + epsf, torch.minimum(h, cand_lo),
+                      torch.clamp(cand_lo, max=mrf))
+    new = torch.where(side > 0, new, h)
+    new_n = torch.where(cand_hi >= h - epsf, torch.maximum(h, cand_hi),
+                        torch.clamp(cand_hi, min=-mrf))
+    return torch.where(side < 0, new_n, new)
+
+
+def _check_field(name, t, N, W, dtype, device):
+    if t.shape != (N, W, W * W) or t.dtype != dtype or t.device != device \
+            or not t.is_contiguous():
+        raise ValueError(f"{name}: want contiguous {dtype} ({N}, {W}, "
+                         f"{W * W}) on {device}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+# ---------------------------------------------------------------------------
+# K2: one sweep
+# ---------------------------------------------------------------------------
+
+def esdf_sweep_ref(esdf_h, enc_h, side_h, slab_act=None, *, V: int,
+                   v1: float, gamma: float, eps: float, max_ray: float,
+                   with_scans: bool = True):
+    """Plain PyTorch version of :func:`esdf_sweep`."""
+    new = sweep_math(esdf_h, enc_h, side_h, W=V + 2, v1=v1, gamma=gamma,
+                     eps=eps, max_ray=max_ray, with_scans=with_scans)
+    if slab_act is None:
+        return new
+    rows = slab_act.repeat_interleave(R) != 0
+    return torch.where(rows[:, None, None], new, esdf_h)
+
+
+def esdf_sweep(esdf_h, enc_h, side_h, slab_act=None, *, V: int, v1: float,
+               gamma: float, eps: float, max_ray: float,
+               with_scans: bool = True):
+    """One fused relaxation sweep over the (N, W, W*W) sweep-layout field
+    (halos assembled; N a multiple of 8). ``enc_h`` is the encoded
+    TSDF/participation channel, ``side_h`` the interior-only int8 update
+    side, ``slab_act`` an (N/8,) int32 gate (None = all slabs). Returns the
+    updated field; inactive slabs and halo positions pass through."""
+    if esdf_h.device.type == "cpu":
+        return esdf_sweep_ref(esdf_h, enc_h, side_h, slab_act, V=V, v1=v1,
+                              gamma=gamma, eps=eps, max_ray=max_ray,
+                              with_scans=with_scans)
+    if esdf_h.device.type != "cuda":
+        raise ValueError(f"unsupported device {esdf_h.device}")
+    from taichislam_tpu_torch.ops.kernels import build
+
+    N, W, dev = esdf_h.shape[0], V + 2, esdf_h.device
+    if N % R:
+        raise ValueError(f"rows must be a multiple of {R}, got {N}")
+    _check_field("esdf_h", esdf_h, N, W, torch.float32, dev)
+    _check_field("enc_h", enc_h, N, W, torch.float32, dev)
+    _check_field("side_h", side_h, N, W, torch.int8, dev)
+    if slab_act is None:
+        slab_act = torch.ones((N // R,), dtype=torch.int32, device=dev)
+    if slab_act.shape != (N // R,) or slab_act.dtype != torch.int32 or \
+            slab_act.device != dev:
+        raise ValueError("slab_act: want (N/8,) int32 on the field's device")
+    slab_act = slab_act.contiguous()
+    lib = build.library()
+    out = torch.empty_like(esdf_h)
+    v1f, v2f, v3f, gf, ef, mf = _consts(v1, gamma, eps, max_ray)
+    err = lib.esdf_sweep_launch(
+        esdf_h.data_ptr(), enc_h.data_ptr(), side_h.data_ptr(),
+        slab_act.data_ptr(), out.data_ptr(), N, V, v1f, v2f, v3f, gf, ef, mf,
+        int(with_scans), torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "esdf_sweep_launch")
+    esdf_sweep.launches += 1
+    return out
+
+
+esdf_sweep.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: the sweep loop
+# ---------------------------------------------------------------------------
+
+_FACE_COLS = (4, 22, 10, 16, 12, 14)  # i-, i+, j-, j+, k-, k+ in nsl27
+
+
+def _loop_tables(nsl27, upd_rows):
+    """Face-neighbour table and slab gates of the loop (wrapper glue).
+
+    adj[m, m2] = 1 iff slab m has an updatable row with a 27-neighbour (or
+    itself) in slab m2; adjS[m, m2] = 1 iff any row of slab m does; acts0 =
+    slabs with an updatable row; shell0 = acts0 dilated by adjS."""
+    N = nsl27.shape[1]
+    NSLAB = N // R
+    dev = nsl27.device
+    nsl = nsl27.long()
+    slab_of = torch.arange(N, device=dev) // R
+    nbr_slab = slab_of[nsl]                                    # (27, N)
+    src = torch.where(upd_rows != 0, slab_of,
+                      torch.full_like(slab_of, NSLAB)).expand(27, N)
+    adj = torch.zeros((NSLAB + 1, NSLAB), dtype=torch.bool, device=dev)
+    adj[src, nbr_slab] = True
+    adj = adj[:NSLAB]
+    adjS = torch.zeros((NSLAB, NSLAB), dtype=torch.bool, device=dev)
+    adjS[slab_of.expand(27, N), nbr_slab] = True
+    acts0 = adj.any(dim=1)
+    shell0 = (acts0[:, None] & adjS).any(dim=0)
+    face = torch.stack([nsl27[c] for c in _FACE_COLS]).to(torch.int32)
+    return face, adj, adjS, acts0, shell0
+
+
+def _scan_pred(s, scan_sweeps, scan_period):
+    return s < scan_sweeps or (scan_period > 0 and s % scan_period == 0)
+
+
+def esdf_sweep_loop_ref(esdf_h, enc_hh, nsl27, upd_rows, *, V: int,
+                        v1: float, gamma: float, eps: float, eps_conv: float,
+                        max_ray: float, max_sweeps: int, scan_sweeps: int = 1,
+                        scan_period: int = 0):
+    """Plain PyTorch version of :func:`esdf_sweep_loop`."""
+    N, W = esdf_h.shape[0], V + 2
+    dev = esdf_h.device
+    face, adj, adjS, acts, shellact = _loop_tables(nsl27, upd_rows)
+    nsl = face.long()
+    upd = upd_rows != 0
+    fld = esdf_h.clone()
+    f4 = fld.view(N, W, W, W)  # (row, j, i, k)
+
+    # interior update side, derived as the loop kernel derives it
+    obs = enc_hh < ENC_BIG * 0.5
+    tsdf = torch.where(obs, enc_hh, 0.0)
+    fixed = (tsdf.abs() < _f32(gamma)) & obs
+    c = torch.arange(W, device=dev)
+    inter1 = (c >= 1) & (c <= V)
+    inter = (inter1.view(W, 1, 1) & inter1.view(1, W, 1) &
+             inter1.view(1, 1, W)).reshape(1, W, W * W)
+    sgn = torch.where(tsdf >= 0.0, 1.0, -1.0)
+    side = torch.where(obs & ~fixed & inter & upd[:, None, None], sgn, 0.0)
+
+    sweeps = comp = shells = 0
+    quiet = False
+    for s in range(max_sweeps):
+        if quiet:
+            break
+        rows_sh = shellact.repeat_interleave(R)
+        shells += int(rows_sh.sum())
+        m = rows_sh[:, None, None]
+        for (a, b), sel in (((0, 1), lambda t, p: t[:, :, p, :]),
+                            ((2, 3), lambda t, p: t[:, p, :, :]),
+                            ((4, 5), lambda t, p: t[:, :, :, p])):
+            lo_src = sel(f4, V)[nsl[a]]
+            hi_src = sel(f4, 1)[nsl[b]]
+            sel(f4, 0).copy_(torch.where(m, lo_src, sel(f4, 0)))
+            sel(f4, V + 1).copy_(torch.where(m, hi_src, sel(f4, V + 1)))
+        rows_act = acts.repeat_interleave(R) & upd
+        comp += int(acts.sum())
+        new = sweep_math(fld, enc_hh, side, W=W, v1=v1, gamma=gamma, eps=eps,
+                         max_ray=max_ray,
+                         with_scans=_scan_pred(s, scan_sweeps, scan_period))
+        new = torch.where(rows_act[:, None, None], new, fld)
+        rowchg = ((new - fld).abs() > _f32(eps_conv)).any(dim=2).any(dim=1)
+        slabchg = rowchg.view(-1, R).any(dim=1)
+        fld.copy_(new)
+        sweeps += 1
+        quiet = not bool(slabchg.any())
+        acts = (slabchg[None, :] & adj).any(dim=1)
+        shellact = (acts[:, None] & adjS).any(dim=0)
+    stats = torch.tensor([sweeps, 0 if quiet else 1, comp, shells],
+                         dtype=torch.int32, device=dev)
+    return fld, stats
+
+
+def esdf_sweep_loop(esdf_h, enc_hh, nsl27, upd_rows, *, V: int, v1: float,
+                    gamma: float, eps: float, eps_conv: float,
+                    max_ray: float, max_sweeps: int, scan_sweeps: int = 1,
+                    scan_period: int = 0):
+    """Run up to ``max_sweeps`` relaxation sweeps, halo exchange included.
+    ``esdf_h`` needs valid interiors only; ``enc_hh`` is the halo-assembled
+    encoded channel; ``nsl27`` the (27, N) int32 compact neighbour table
+    (garbage row for missing neighbours, whose enc must be ENC_BIG);
+    ``upd_rows`` the (N,) updatable-row mask. Returns (field, stats) with
+    stats = [sweeps_run, changed_at_exit, computed_slabs, shell_rows]
+    int32. The CUDA path issues every sweep without a host sync: after
+    convergence a device flag turns the remaining launches into no-ops."""
+    if esdf_h.device.type == "cpu":
+        return esdf_sweep_loop_ref(
+            esdf_h, enc_hh, nsl27, upd_rows, V=V, v1=v1, gamma=gamma,
+            eps=eps, eps_conv=eps_conv, max_ray=max_ray,
+            max_sweeps=max_sweeps, scan_sweeps=scan_sweeps,
+            scan_period=scan_period)
+    if esdf_h.device.type != "cuda":
+        raise ValueError(f"unsupported device {esdf_h.device}")
+    from taichislam_tpu_torch.ops.kernels import build
+
+    N, W, dev = esdf_h.shape[0], V + 2, esdf_h.device
+    if N % R:
+        raise ValueError(f"rows must be a multiple of {R}, got {N}")
+    _check_field("esdf_h", esdf_h, N, W, torch.float32, dev)
+    _check_field("enc_hh", enc_hh, N, W, torch.float32, dev)
+    if nsl27.shape != (27, N) or nsl27.device != dev or \
+            upd_rows.shape != (N,) or upd_rows.device != dev:
+        raise ValueError("nsl27 / upd_rows: want (27, N) and (N,) on the "
+                         "field's device")
+    lib = build.library()
+    face, adj, adjS, acts0, shell0 = _loop_tables(nsl27, upd_rows)
+    NSLAB = N // R
+    i32 = torch.int32
+    adj = adj.to(i32).contiguous()
+    adjS = adjS.to(i32).contiguous()
+    acts = acts0.to(i32).contiguous()
+    shellact = shell0.to(i32).contiguous()
+    upd = (upd_rows != 0).to(i32).contiguous()
+    st = torch.zeros((5,), dtype=i32, device=dev)
+    slabchg = torch.zeros((NSLAB,), dtype=i32, device=dev)
+    fld = esdf_h.clone()
+    v1f, v2f, v3f, gf, ef, mf = _consts(v1, gamma, eps, max_ray)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for s in range(max_sweeps):
+        err = lib.esdf_loop_sweep_launch(
+            fld.data_ptr(), enc_hh.data_ptr(), face.data_ptr(),
+            upd.data_ptr(), adj.data_ptr(), adjS.data_ptr(), st.data_ptr(),
+            slabchg.data_ptr(), acts.data_ptr(), shellact.data_ptr(), N,
+            NSLAB, V, v1f, v2f, v3f, gf, ef, mf, _f32(eps_conv),
+            int(_scan_pred(s, scan_sweeps, scan_period)), stream)
+        build.check(err, "esdf_loop_sweep_launch")
+    esdf_sweep_loop.launches += 1
+    stats = torch.stack([st[2], 1 - st[0], st[3], st[4]]).to(i32)
+    return fld, stats
+
+
+esdf_sweep_loop.launches = 0

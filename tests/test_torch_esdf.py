@@ -1,0 +1,237 @@
+"""Block-mode ESDF: the PyTorch port against the JAX package.
+
+JAX runs its fused Pallas sweep in interpret mode with the loop kernel off
+(``pallas_esdf="on"``, ``esdf_loop_kernel="off"``): the per-sweep path that
+tests/test_esdf.py proves equal to the loop kernel. The port runs its K3
+twin whenever the budget is >= 2 and its K2 twin otherwise. Sweep counts,
+changed-block bitmaps, fixed flags and overflow are exact; the field agrees
+to 1e-6 on participating voxels (same schedule and math; ~1 ulp where
+XLA contracts a multiply-add differently).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax.numpy as jnp  # noqa: E402
+
+from taichislam_tpu.core.config import TSDFConfig as JConfig  # noqa: E402
+from taichislam_tpu.ops import esdf as je  # noqa: E402
+from taichislam_tpu.ops import tsdf as jt  # noqa: E402
+from taichislam_tpu.ops.pallas.esdf_sweep import esdf_sweep_pallas  # noqa: E402,E501
+from taichislam_tpu_torch import bridge  # noqa: E402
+from taichislam_tpu_torch.core.config import TSDFConfig as TConfig  # noqa: E402,E501
+from taichislam_tpu_torch.ops import esdf as te  # noqa: E402
+from taichislam_tpu_torch.ops.kernels import esdf_sweep as tk  # noqa: E402
+
+KW = dict(map_scale=(6.4, 6.4), voxel_scale=0.1, num_voxel_per_blk_axis=8,
+          max_ray_length=2.0, min_ray_length=0.3, max_blocks=512,
+          max_bins=8192, max_submap_num=8, esdf_raise_slack_voxels=0.0,
+          esdf_seed_eps_voxels=0.0)
+JCFG = JConfig(pallas_accum="on", pallas_esdf="on", esdf_loop_kernel="off",
+               **KW)
+TCFG = TConfig(**KW)
+K = np.array([40.0, 0, 32.0, 0, 40.0, 24.0, 0, 0, 1], np.float32)
+CAP = 64
+SHAPE = (KW["max_blocks"] + 1, 8 ** 3)
+
+
+def _integrate(depth):
+    st = jt.make_tsdf_state(JCFG)
+    st, stats = jt.integrate_depth(JCFG, st, jnp.asarray(depth),
+                                   jnp.zeros((1, 1, 3), jnp.uint8),
+                                   jnp.eye(3), jnp.zeros(3), jnp.asarray(K),
+                                   jnp.asarray(K), jnp.int32(0))
+    return st, stats
+
+
+@pytest.fixture(scope="module")
+def wall():
+    """A flat wall 1 m ahead (the scene of tests/test_esdf.py)."""
+    return _integrate(np.full((48, 64), 1000, np.uint16))
+
+
+@pytest.fixture(scope="module")
+def slope():
+    jj, ii = np.meshgrid(np.arange(48), np.arange(64), indexing="ij")
+    return _integrate((1000 + 4.0 * ii + 2.0 * jj).astype(np.uint16))
+
+
+def _zeros():
+    return (jnp.zeros(SHAPE, jnp.float32), jnp.zeros(SHAPE, jnp.int8))
+
+
+def _compare_update(cfg_j, cfg_t, budget, jstate, e0, f0, **kw):
+    """Run both updates from the same state; assert the exact parts and
+    the 1e-6 field bound; return the JAX outputs."""
+    jkw = {k: (None if v is None else jnp.asarray(v)) for k, v in kw.items()}
+    want = je.esdf_update(cfg_j, budget, CAP, jstate, jnp.asarray(e0),
+                          jnp.asarray(f0), jnp.int32(0), **jkw)
+    tkw = {k: (None if v is None else torch.from_numpy(np.array(v)))
+           for k, v in kw.items()}
+    got = te.esdf_update(cfg_t, budget, CAP,
+                         bridge.grid_state_from_numpy(jstate),
+                         torch.from_numpy(np.array(e0)),
+                         torch.from_numpy(np.array(f0)), 0, **tkw)
+    we, wf, wp, ws, wc, wo = (np.asarray(a) for a in want)
+    ge, gf, gp, gs, gc, go = (a.numpy() for a in got)
+    assert int(ws) == int(gs), (int(ws), int(gs))
+    assert int(wo) == int(go)
+    np.testing.assert_array_equal(wp, gp)
+    np.testing.assert_array_equal(wf, gf)
+    np.testing.assert_array_equal(wc, gc)
+    err = np.abs(np.where(wp, we - ge, 0.0)).max()
+    assert err <= 1e-6, f"field max abs err {err}"
+    return we, wf, wp, int(ws), wc
+
+
+@pytest.mark.parametrize("budget", [2, 6])
+def test_loop_path_matches_jax_per_sweep(slope, budget):
+    _, _, part, sweeps, _ = _compare_update(JCFG, TCFG, budget, slope[0],
+                                            *_zeros())
+    assert part.sum() > 100 and sweeps == budget
+
+
+@pytest.mark.parametrize("budget", [2, 6])
+def test_loop_path_raise_reactivation_matches(wall, budget):
+    """Start from the converged field, erase the wall: the raise front
+    moves out and slabs go quiet behind it, then re-lowering re-activates
+    them inside one update (tests/test_esdf.py:618)."""
+    state = wall[0]
+    e0, f0, *_ = je.esdf_update(JCFG, 24, CAP, state, *_zeros(),
+                                jnp.int32(0))
+    tsdf = np.asarray(state.channels["TSDF"], np.float32)
+    erase = np.asarray(state.channels["TSDF_observed"] > 0) & (tsdf < 0.15)
+    state2 = state._replace(channels={
+        **state.channels, "TSDF": jnp.asarray(np.where(erase, 2.0, tsdf))})
+    we, *_ = _compare_update(JCFG, TCFG, budget, state2, e0, f0)
+    assert (we - np.asarray(e0) > 0.2).sum() > 50   # the raise moved values
+
+
+@pytest.mark.parametrize("force", [False, True])
+def test_per_sweep_path_matches_jax(slope, force):
+    """Budget 1, and forced sweeps (no early exit, no gates): the K2 path."""
+    budget = 3 if force else 1
+    cj = dataclasses.replace(JCFG, esdf_force_sweeps=force)
+    ct = dataclasses.replace(TCFG, esdf_force_sweeps=force)
+    _compare_update(cj, ct, budget, slope[0], *_zeros())
+
+
+def test_dirty_mode_with_snapshot_seeds_matches_jax(slope):
+    """The per-frame main path: seed gating, then the dirty working set
+    with its frozen rim and consume-once snapshot seeds, twice."""
+    state, stats = slope
+    touched = np.asarray(stats["touched_blocks"])
+    seen_t = jnp.zeros(SHAPE, jnp.float32)
+    seen_o = jnp.zeros(SHAPE, bool)
+    dirty, seen_t, seen_o = je.esdf_seed_dirty(JCFG, state, seen_t, seen_o,
+                                               jnp.asarray(touched))
+    e, f = _zeros()
+    pending = np.zeros(SHAPE[0], bool)
+    for _ in range(2):
+        d = np.asarray(dirty) | pending
+        e, f, _, _, pending = _compare_update(
+            JCFG, TCFG, 3, state, e, f, dirty_blocks=d,
+            tsdf_src=np.asarray(seen_t), obs_src=np.asarray(seen_o))
+        pending = np.asarray(pending)
+    assert pending.any()
+
+
+@pytest.mark.parametrize("cap", [512, 3])
+def test_seed_dirty_matches_jax(slope, cap):
+    """Gating against perturbed snapshots; cap 3 overflows the touched
+    list (rows past the cap are dirty uncompared)."""
+    state, stats = slope
+    rng = np.random.default_rng(cap)
+    tsdf = np.asarray(state.channels["TSDF"], np.float32)
+    seen_t = (tsdf + rng.uniform(-0.01, 0.01, tsdf.shape)).astype(np.float32)
+    seen_o = np.array(state.channels["TSDF_observed"]) > 0
+    touched = np.asarray(stats["touched_blocks"])
+    rows = np.nonzero(touched)[0]
+    seen_t[rows[:3], 5] += 0.1         # moved past the 0.25-voxel gate
+    seen_o[rows[4], 7] ^= True         # an observed flag flipped
+    cfg_j = dataclasses.replace(JCFG, esdf_seed_eps_voxels=0.25)
+    cfg_t = dataclasses.replace(TCFG, esdf_seed_eps_voxels=0.25)
+    want = je.esdf_seed_dirty(cfg_j, state, jnp.asarray(seen_t),
+                              jnp.asarray(seen_o), jnp.asarray(touched), cap)
+    got = te.esdf_seed_dirty(cfg_t, bridge.grid_state_from_numpy(state),
+                             torch.from_numpy(seen_t.copy()),
+                             torch.from_numpy(seen_o.copy()),
+                             torch.from_numpy(touched.copy()), cap)
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    n_dirty = int(got[0].sum())
+    if cap >= touched.sum():
+        assert 0 < n_dirty < touched.sum()
+    else:   # past the cap every touched row is dirty uncompared
+        assert n_dirty == touched.sum()
+
+
+def test_working_set_helpers_match_jax(slope):
+    state = slope[0]
+    ps = bridge.grid_state_from_numpy(state)
+    spec = JCFG.grid
+    nb = int(state.num_blocks)
+    rows = np.arange(nb + 3, dtype=np.int32)
+    rows[-3:] = SHAPE[0] - 1
+    want = np.asarray(je.neighbor_slot_cols(spec, state, jnp.int32(0),
+                                            rows=jnp.asarray(rows)))
+    got = te.neighbor_slot_cols(TCFG.grid, ps, torch.from_numpy(rows))
+    np.testing.assert_array_equal(want, got.numpy())
+    bvalid = np.arange(len(rows)) < nb
+    w = je.morton_order_rows(jnp.asarray(rows), jnp.asarray(bvalid),
+                             jnp.int32(nb // 2), state.block_coords)
+    g = te.morton_order_rows(torch.from_numpy(rows), torch.from_numpy(bvalid),
+                             torch.tensor(nb // 2), ps.block_coords)
+    np.testing.assert_array_equal(np.asarray(w), g.numpy())
+
+    V, n = 8, 12
+    rng = np.random.default_rng(0)
+    tiles = rng.standard_normal((n, V ** 3)).astype(np.float32)
+    nsl = rng.integers(0, n, (27, n)).astype(np.int32)
+    tiles[-1] = 7.0   # the garbage row holds the fill
+    H = je._to_sweep_layout(jnp.asarray(tiles), V, 7.0)
+    Ht = te._to_sweep_layout(torch.from_numpy(tiles), V, 7.0)
+    np.testing.assert_array_equal(np.asarray(H), Ht.numpy())
+    np.testing.assert_array_equal(
+        np.asarray(je._assemble_sweep(H, jnp.asarray(nsl), V, 7.0)),
+        te._assemble_sweep(Ht, torch.from_numpy(nsl), V).numpy())
+    np.testing.assert_array_equal(
+        np.asarray(je._from_sweep_layout(H, V)),
+        te._from_sweep_layout(Ht, V).numpy())
+    np.testing.assert_array_equal(je._shell_mask_np(V),
+                                  te._shell_mask(V, torch.device("cpu")))
+
+
+@pytest.mark.parametrize("with_scans", [False, True])
+def test_sweep_twin_matches_pallas_kernel(with_scans):
+    """K2 twin against esdf_sweep_pallas (interpret) on random fields."""
+    V, N = 8, 16
+    W = V + 2
+    rng = np.random.default_rng(int(with_scans))
+    tsdf = rng.uniform(-0.5, 0.5, (N, W, W * W)).astype(np.float32)
+    part = rng.random(tsdf.shape) < 0.85
+    enc = np.where(part, tsdf, 1e6).astype(np.float32)
+    esdf = (tsdf + rng.uniform(-0.4, 0.4, tsdf.shape)).astype(np.float32)
+    c = np.arange(W)
+    inter1 = (c >= 1) & (c <= V)
+    inter = (inter1[:, None, None] & inter1[None, :, None] &
+             inter1[None, None, :]).reshape(1, W, W * W)
+    fixed = part & (np.abs(tsdf) < 0.1)
+    side = np.where(part & ~fixed & inter, np.where(tsdf >= 0, 1, -1),
+                    0).astype(np.int8)
+    act = np.array([1, 0], np.int32)
+    kw = dict(V=V, v1=0.1, gamma=0.1, eps=0.05, max_ray=2.0,
+              with_scans=with_scans)
+    want = np.asarray(esdf_sweep_pallas(
+        jnp.asarray(esdf), jnp.asarray(enc), jnp.asarray(side),
+        jnp.asarray(act), interpret=True, **kw))
+    got = tk.esdf_sweep(torch.from_numpy(esdf), torch.from_numpy(enc),
+                        torch.from_numpy(side), torch.from_numpy(act), **kw)
+    assert np.abs(want - got.numpy()).max() <= 1e-6
+    assert np.array_equal(want[8:], esdf[8:])   # the idle slab passed
+    assert not np.array_equal(want[:8], esdf[:8])

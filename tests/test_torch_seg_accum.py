@@ -1,0 +1,107 @@
+"""K1 twin (segmented_block_reduce_ref) against the Pallas kernel.
+
+The JAX side runs ``segmented_block_reduce`` in interpret mode, as the JAX
+package's own tests do. Keys, touched counts and lanes_dropped are exact;
+tiles agree to atol 1e-4 (test_pallas_accum.py's bound: the two sum the
+same f32 values in different orders).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax.numpy as jnp  # noqa: E402
+
+from taichislam_tpu.ops.pallas import seg_accum as jk  # noqa: E402
+from taichislam_tpu_torch.ops.kernels import seg_accum as tk  # noqa: E402
+
+V3 = 512
+
+
+def _lanes(seed, n, n_blocks, invalid=0.1, n_vals=2):
+    rng = np.random.default_rng(seed)
+    bkey = rng.integers(0, n_blocks, n).astype(np.int32)
+    bkey[rng.random(n) < invalid] = jk.SENTINEL_BLOCK
+    intra = rng.integers(0, V3, n).astype(np.int32)
+    vals = [rng.standard_normal(n).astype(np.float32)
+            for _ in range(n_vals)]
+    return bkey, intra, vals
+
+
+def _compare(bkey, intra, vals, max_touched, **kw):
+    want = jk.segmented_block_reduce(
+        jnp.asarray(bkey), jnp.asarray(intra),
+        tuple(jnp.asarray(v) for v in vals), V3, max_touched,
+        interpret=True, **kw)
+    kw.pop("max_bkey", None)
+    got = tk.segmented_block_reduce(
+        torch.from_numpy(bkey), torch.from_numpy(intra),
+        [torch.from_numpy(v) for v in vals], V3, max_touched, **kw)
+    touched = np.asarray(want[0])
+    np.testing.assert_array_equal(touched, got[0].numpy())
+    assert int(want[2]) == int(got[2])
+    assert int(want[3]) == int(got[3])
+    rows = touched >= 0
+    np.testing.assert_allclose(np.asarray(want[1])[rows],
+                               got[1].numpy()[rows], atol=1e-4)
+    # the port also zeroes the rows past n_touched
+    assert not got[1].numpy()[~rows].any()
+    return got
+
+
+@pytest.mark.parametrize("case", ["packed", "two_key", "f16", "f16_odd"])
+def test_sorted_reduce_matches_pallas(case):
+    bkey, intra, vals = _lanes(1, 3000, 23,
+                               n_vals=3 if case == "f16_odd" else 2)
+    kw = {"packed": dict(max_bkey=64), "two_key": {},
+          "f16": dict(max_bkey=64, vals_f16=True),
+          "f16_odd": dict(vals_f16=True)}[case]
+    got = _compare(bkey, intra, vals, 32, **kw)
+    assert int(got[2]) == 23
+
+
+def test_presorted_single_block():
+    """The per-bin call site: one block, intra = nondecreasing rank,
+    invalid lanes last."""
+    rng = np.random.default_rng(2)
+    rank = np.sort(rng.integers(0, 700, 2500)).astype(np.int32)
+    ok = rank < V3
+    bkey = np.where(ok, 0, jk.SENTINEL_BLOCK).astype(np.int32)
+    intra = np.where(ok, rank, 0).astype(np.int32)
+    vals = [np.ones(2500, np.float32)] + [
+        rng.standard_normal(2500).astype(np.float32) for _ in range(4)]
+    _compare(bkey, intra, vals, 1, presorted=True)
+
+
+def test_lane_cap_counts_dropped_lanes():
+    # distinct (block, intra) keys and the packed-key sort (the march call
+    # site's): which lanes of the boundary block fall past the cap must not
+    # depend on tie order. (The JAX two-key path sorts by block only, so
+    # with a cap its kept lanes of that block are arbitrary.)
+    bkey, intra, vals = _lanes(3, 6000, 40, invalid=0.05)
+    key = np.random.default_rng(3).choice(40 * V3, 6000, replace=False)
+    valid = bkey < jk.SENTINEL_BLOCK
+    bkey = np.where(valid, key // V3, bkey).astype(np.int32)
+    intra = (key % V3).astype(np.int32)
+    got = _compare(bkey, intra, vals, 64, lane_cap=2500, max_bkey=64)
+    assert int(got[3]) > 0     # cap rounds to 4096 < 5700 valid lanes
+
+
+def test_touched_overflow_is_counted():
+    bkey, intra, vals = _lanes(4, 2048, 90)
+    got = _compare(bkey, intra, vals, 16)
+    assert int(got[2]) == 90 and int((got[0] >= 0).sum()) == 16
+
+
+def test_wrapper_rejects_bad_inputs():
+    bkey, intra, vals = _lanes(5, 64, 4)
+    with pytest.raises(ValueError):
+        tk.segmented_block_reduce(torch.from_numpy(bkey).long(),
+                                  torch.from_numpy(intra),
+                                  [torch.from_numpy(v) for v in vals], V3, 8)
+    with pytest.raises(ValueError):
+        tk.segmented_block_reduce(torch.from_numpy(bkey),
+                                  torch.from_numpy(intra),
+                                  [torch.from_numpy(vals[0])] * 9, V3, 8)

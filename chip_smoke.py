@@ -12,7 +12,19 @@ Phases:
      kernels' launch counters must grow during this run;
   4. the first frames again through the plain path on the CPU: tables and
      observed flags exact, TSDF and ESDF within 4e-3, sweep counts equal;
-  5. the model API: DenseESDF.recast_depth_to_map on the card.
+  5. the model API: DenseESDF.recast_depth_to_map on the card;
+  6. the node's default single-map path, built as taichislam_tpu/node/core.py
+     builds it: a textured DenseESDF over a 100 x 10 m map at 5 cm with the
+     D435 depth and color cameras (color_same_proj=False) and the default
+     ESDF modes, plus the incremental MarchingCubeMesher; per frame
+     recast_depth_to_map, generate_mesh(1), cvt_TSDF_surface_to_voxels and
+     cvt_ESDF_to_voxels_slice(0.0) over 16 textured 640x480 frames, then
+     saveMap / DenseTSDF.loadMap. No capacity may drop, K1 must launch, the
+     ESDF must be finite, the mesh and both exports non-empty;
+  7. the first frames of that path on the card and through the plain path
+     on the CPU, on a 10 x 10 m map: tables, observed and fixed flags, ESDF
+     modes and sweeps exact; TSDF, color and ESDF within 4e-3; triangle and
+     export counts exact, vertices within 1e-4 m.
 
 Exits non-zero without a result when no CUDA device is present. The last
 line is {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -25,11 +37,13 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
 N_FRAMES = 16
 CPU_FRAMES = 4
+OUT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 
 
 def log(msg):
@@ -89,6 +103,30 @@ def check_seg_accum(dev, results):
     vals = [np.ones(n, np.float32)] + [rng.standard_normal(n).astype(
         np.float32) for _ in range(4)]
     sites.append(("bins", bkey, intra, vals,
+                  dict(V3=8192, max_touched=1, presorted=True)))
+    # textured march site at the node's shape: 102 steps x 6144 bins over
+    # a 100 x 10 m map's blocks; Σw, Σw·d and three Σw·c, pairs f16-rounded
+    n = 102 * 6144
+    blocks = rng.choice(125 * 125 * 13, 700, replace=False)
+    bkey = blocks[rng.integers(0, 700, n)].astype(np.int32)
+    bkey[rng.random(n) < 0.3] = k1.SENTINEL_BLOCK
+    intra = rng.integers(0, 4096, n).astype(np.int32)
+    w = rng.random(n, dtype=np.float32) * 10
+    vals = [w, w * rng.standard_normal(n).astype(np.float32)] + [
+        w * rng.random(n, dtype=np.float32) for _ in range(3)]
+    sites.append(("march5", bkey, intra, vals,
+                  dict(V3=4096, max_touched=1024, vals_f16=True)))
+    # textured bins site: count, px, py, pz, depth, r, g, b
+    n = 76800
+    rank = np.sort(rng.integers(0, 9000, n)).astype(np.int32)
+    _, rank = np.unique(rank, return_inverse=True)
+    ok = rank < 8192
+    bkey = np.where(ok, 0, k1.SENTINEL_BLOCK).astype(np.int32)
+    intra = np.where(ok, rank, 0).astype(np.int32)
+    vals = [np.ones(n, np.float32)] + [rng.standard_normal(n).astype(
+        np.float32) for _ in range(4)] + [
+        rng.uniform(0, 255, n).astype(np.float32) for _ in range(3)]
+    sites.append(("bins8", bkey, intra, vals,
                   dict(V3=8192, max_touched=1, presorted=True)))
 
     err = 0.0
@@ -245,8 +283,8 @@ def run_frames(cfg, frames, dev, esdf_cap, budget, n=None, stages=None):
 
     for f in range(len(depth) if n is None else n):
         mark()
-        state, stats = tsdf_ops.integrate_depth(cfg, state, depth[f], Rs[f],
-                                                Ts[f], K, 0)
+        state, stats = tsdf_ops.integrate_depth(cfg, state, depth[f], None,
+                                                Rs[f], Ts[f], K, K, 0)
         sweeps = ov = torch.zeros((), dtype=torch.int32, device=dev)
         mark()
         if budget:
@@ -294,6 +332,235 @@ def size_capacities(cfg, frames, dev, esdf_cap, budget):
                 max_march_lanes=want_lanes,
                 max_touched_blocks=cfg.max_touched_blocks * 2)
     raise AssertionError("capacities did not settle without drops")
+
+
+# ---------------------------------------------------------------------------
+# phases 6-7: the node's default single-map path
+# ---------------------------------------------------------------------------
+
+# taichislam_tpu/node/core.py:80-89 (D435 depth and color cameras) and the
+# map options of get_esdf_opts (core.py:107-143)
+KDEPTH = np.array([384.2377014160156, 0.0, 323.4873046875, 0.0,
+                   384.2377014160156, 235.0628204345703, 0.0, 0.0, 1.0],
+                  np.float32)
+KCOLOR = KDEPTH.copy()
+NODE_MAP = dict(map_scale=[100, 10], voxel_scale=0.05, texture_enabled=True,
+                color_same_proj=False, max_ray_length=5.1,
+                min_ray_length=0.3, disp_ceiling=1.8, disp_floor=-0.3,
+                max_esdf_sweeps=64)
+BENCH_MAP = dict(NODE_MAP, map_scale=[10, 10], max_submap_num=64)
+DROP_KEYS = ("alloc_overflow", "touched_dropped", "lanes_dropped",
+             "bins_dropped")
+
+
+def textures(n, h=480, w=640, seed=7):
+    """Deterministic, spatially coherent, non-constant RGB frames."""
+    rng = np.random.default_rng(seed)
+    jj, ii = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    out = []
+    for f in range(n):
+        base = np.stack([128 + 100 * np.sin((ii + 13 * f) / 40.0),
+                         128 + 100 * np.cos((jj - 7 * f) / 30.0),
+                         (ii // 16 * 37 + jj // 16 * 53 + f * 11) % 256], -1)
+        out.append(np.clip(base + rng.integers(0, 16, (h, w, 3)), 0,
+                           255).astype(np.uint8))
+    return out
+
+
+class Timer:
+    """Per-stage milliseconds: CUDA events on the card, the host clock on
+    the CPU."""
+
+    def __init__(self, dev):
+        import torch
+        self.cuda = dev.type == "cuda"
+        self.torch = torch
+        self.marks = []
+
+    def mark(self):
+        if self.cuda:
+            e = self.torch.cuda.Event(enable_timing=True)
+            e.record()
+            self.marks.append(e)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def ms(self):
+        if self.cuda:
+            self.torch.cuda.synchronize()
+            return [a.elapsed_time(b) for a, b in zip(self.marks[:-1],
+                                                      self.marks[1:])]
+        return [1000 * (b - a) for a, b in zip(self.marks[:-1],
+                                                self.marks[1:])]
+
+
+def node_run(dev, frames, texs, map_kw, n, bin_floor=None):
+    """Drive the node's per-frame loop for ``n`` frames. The model adapts
+    its ray-bin bucket to each frame's load, so a frame whose load rises
+    past the bucket drops bins; ``bin_floor`` (the largest bucket a sizing
+    pass needed) holds the bucket at or above it. Returns (model, mesher,
+    per-frame records, per-frame stage ms)."""
+    from taichislam_tpu_torch.models.dense_esdf import DenseESDF
+    from taichislam_tpu_torch.models.mesher import MarchingCubeMesher
+    depth, Rs, Ts = frames
+    m = DenseESDF(**map_kw, device=dev)
+    m.set_dep_camera_intrinsic(KDEPTH)
+    m.set_color_camera_intrinsic(KCOLOR)
+    mesher = MarchingCubeMesher(m, 1_000_000, tsdf_surface_thres=0.25)
+    if bin_floor is not None:
+        follow = m._update_bin_bucket
+
+        def held(stats):
+            follow(stats)
+            m._bin_bucket = max(m._bin_bucket, bin_floor)
+        m._update_bin_bucket = held
+        m._bin_bucket = bin_floor
+    recs, stage_ms = [], []
+    for f in range(n):
+        t = Timer(dev)
+        t.mark()
+        m.recast_depth_to_map(Rs[f], Ts[f], depth[f], texs[f])
+        t.mark()
+        mesher.generate_mesh(1)
+        t.mark()
+        m.cvt_TSDF_surface_to_voxels()
+        t.mark()
+        m.cvt_ESDF_to_voxels_slice(0.0)
+        t.mark()
+        stage_ms.append(t.ms())
+        st = m.last_stats
+        drops = {k: int(st[k]) for k in DROP_KEYS if int(st[k])}
+        recs.append(dict(
+            mode=m._esdf_last_mode, sweeps=m.last_esdf_sweeps,
+            dirty=m.last_esdf_dirty, drops=sum(drops.values()),
+            dropped=drops, bucket=m._bin_bucket,
+            tris=mesher.num_facelets, surface=m.num_TSDF_particles,
+            slice=m.num_export_ESDF_particles))
+    return m, mesher, recs, np.array(stage_ms)
+
+
+def node_phase(dev, smi, frames, texs, launches):
+    """Phase 6: the node path at the node's defaults, 16 frames; a first
+    untimed pass finds the largest ray-bin bucket the frames need (and
+    warms the allocator), the measured pass holds the bucket there."""
+    import torch
+    from taichislam_tpu_torch.models.dense_tsdf import DenseTSDF
+    from taichislam_tpu_torch.ops.kernels import esdf_sweep as ks
+    from taichislam_tpu_torch.ops.kernels import seg_accum as k1
+    wm, _, wrec, _ = node_run(dev, frames, texs, NODE_MAP, N_FRAMES)
+    floor = max(r["bucket"] for r in wrec)
+    log(f"[phase6] sizing pass (follow-the-load bin bucket): drops/frame "
+        f"{[r['dropped'] for r in wrec]}, buckets "
+        f"{[r['bucket'] for r in wrec]}, modes {[r['mode'] for r in wrec]}")
+    del wm
+    counters = (k1.segmented_block_reduce, ks.esdf_sweep, ks.esdf_sweep_loop)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m, mesher, recs, ms = node_run(dev, frames, texs, NODE_MAP, N_FRAMES,
+                                   bin_floor=floor)
+    torch.cuda.synchronize()
+    got = dict(zip(("K1", "K2", "K3"), (c.launches for c in counters)))
+    for k, v in got.items():
+        launches[k] += v
+    log(f"[phase6] launches during the node path: {got}")
+    require(got["K1"] > 0, "K1 was not launched on the node path")
+    require(max(r["drops"] for r in recs) == 0,
+            f"node path: capacity drops {[r['dropped'] for r in recs]}")
+    require(bool(torch.isfinite(m.esdf[m.esdf_observed]).all()),
+            "node path: ESDF not finite")
+    require(int(m.esdf_observed.sum()) > 0, "node path: empty ESDF")
+    require(mesher.num_facelets > 0, "node path: no triangles")
+    require(min(r["surface"] for r in recs) > 0 and
+            min(r["slice"] for r in recs) > 0, "node path: empty export")
+    log(f"[phase6] ESDF mode/frame {[r['mode'] for r in recs]}")
+    log(f"[phase6] sweeps/frame {[r['sweeps'] for r in recs]} dirty/frame "
+        f"{[r['dirty'] for r in recs]}")
+    log(f"[phase6] triangles/frame {[r['tris'] for r in recs]} surface "
+        f"{recs[-1]['surface']} slice {recs[-1]['slice']} particles")
+    per = ms.mean(0)
+    log(f"[phase6] ms/frame: recast (fusion + ESDF) {per[0]:.3f} mesh "
+        f"{per[1]:.3f} surface export {per[2]:.3f} ESDF slice {per[3]:.3f} "
+        f"total {per.sum():.3f} ({smi})")
+    log(f"[phase6] recast ms per frame {np.round(ms[:, 0], 3).tolist()}")
+    log(f"[phase6] launches per frame: K1 {got['K1'] / N_FRAMES:.2f} "
+        f"K3 {got['K3'] / N_FRAMES:.2f} K2 {got['K2'] / N_FRAMES:.2f}; "
+        f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    node_profile(dev, frames, texs, floor)
+    path = OUT_DIR / "node_map.npy"
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    m.saveMap(str(path))
+    loaded = DenseTSDF.loadMap(str(path), device=dev)
+    n_act, n_load = m.count_active(), loaded.count_active()
+    require(n_act == n_load > 0, f"saveMap/loadMap: {n_act} vs {n_load}")
+    log(f"[phase6] saveMap -> loadMap: {n_load} active voxels both")
+    path.unlink()
+
+
+def node_profile(dev, frames, texs, bin_floor, n=4):
+    """torch.profiler over the first ``n`` frames of the node path: CUDA
+    kernels per frame, device busy time against the wall clock, and the
+    kernels by device time (the table goes to build/chip_smoke/)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        node_run(dev, frames, texs, NODE_MAP, n, bin_floor=bin_floor)
+        torch.cuda.synchronize()
+    wall = 1000 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in kernels) / 1000.0
+    log(f"[phase6] profiled {n} frames: {len(kernels) / n:.0f} CUDA kernels "
+        f"per frame, device busy {busy / n:.3f} of {wall / n:.3f} ms per "
+        f"frame under the profiler (idle share {1 - busy / wall:.3f})")
+    table = prof.key_averages().table(sort_by="cuda_time_total",
+                                      row_limit=40)
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "node_profile.txt").write_text(table)
+
+
+def node_cpu_phase(dev, frames, texs):
+    """Phase 7: the first frames of the node path on the card and on the
+    CPU, on the bench-sized map."""
+    import torch
+    cpu = torch.device("cpu")
+    g = node_run(dev, frames, texs, BENCH_MAP, CPU_FRAMES)
+    c = node_run(cpu, frames, texs, BENCH_MAP, CPU_FRAMES)
+    gm, gmesh, grec, _ = g
+    cm, cmesh, crec, _ = c
+    require(gmesh.delivery == "quantized", "bench map mesh delivery")
+    for key in ("mode", "sweeps", "dirty", "tris", "surface", "slice"):
+        require([r[key] for r in grec] == [r[key] for r in crec],
+                f"node card vs CPU: {key} {[r[key] for r in grec]} vs "
+                f"{[r[key] for r in crec]}")
+    gs, cs = gm.state, cm.state
+    require(torch.equal(gs.table.cpu(), cs.table), "table")
+    require(torch.equal(gs.channels["TSDF_observed"].cpu(),
+                        cs.channels["TSDF_observed"]), "TSDF_observed")
+    require(torch.equal(gm.esdf_observed.cpu(), cm.esdf_observed),
+            "esdf_observed")
+    require(torch.equal(gm.esdf_fixed.cpu(), cm.esdf_fixed), "esdf_fixed")
+    errs = {}
+    for name in ("TSDF", "color"):
+        errs[name] = float((gs.channels[name].cpu().float() -
+                            cs.channels[name].float()).abs().max())
+    obs = cm.esdf_observed
+    errs["ESDF"] = float((gm.esdf.cpu() - cm.esdf)[obs].abs().max())
+    n = gmesh.num_facelets * 3
+    errs["vertices"] = float(np.abs(gmesh.mesh_vertices[:n] -
+                                    cmesh.mesh_vertices[:n]).max())
+    for k, v in errs.items():
+        require(v <= (1e-4 if k == "vertices" else 4e-3),
+                f"node card vs CPU: {k} max abs {v}")
+    log(f"[phase7] card vs CPU over {CPU_FRAMES} frames: max abs {errs}; "
+        f"modes {[r['mode'] for r in crec]} sweeps "
+        f"{[r['sweeps'] for r in crec]} triangles "
+        f"{[r['tris'] for r in crec]}")
 
 
 def main():
@@ -421,6 +688,13 @@ def main():
             ks.esdf_sweep_loop.launches > before[1], "model kernels")
     log(f"[phase5] DenseESDF: {n_act} active voxels, last sweeps "
         f"{m.last_esdf_sweeps}, last dirty {m.last_esdf_dirty}")
+
+    # ---- phases 6-7 ------------------------------------------------------
+    depth_n, Rs_n, Ts_n, _ = orbit_sequence(n_frames=N_FRAMES, K=KDEPTH,
+                                            noise_mm=3.0)
+    texs = textures(N_FRAMES)
+    node_phase(dev, smi, (depth_n, Rs_n, Ts_n), texs, launches)
+    node_cpu_phase(dev, (depth_n, Rs_n, Ts_n), texs)
 
     src = "taichislam_tpu_torch/csrc/"
     table = [("seg_accum (K1)", "K1", src + "seg_accum.cu",

@@ -12,6 +12,9 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
+
+from taichislam_tpu_torch.core.geometry import inv
 
 # matplotlib's _jet_data (x, value) breakpoints per channel
 _JET = (
@@ -33,3 +36,27 @@ def jet_lut_np(n: int = 1024) -> np.ndarray:
     idx = np.minimum((np.arange(n) / float(n) * _MPL_N).astype(np.int64),
                      _MPL_N - 1)
     return base[idx].astype(np.float32)
+
+
+@functools.lru_cache(maxsize=4)
+def _jet_lut(device) -> torch.Tensor:
+    return torch.from_numpy(jet_lut_np()).to(device)
+
+
+def color_from_colormap(z: torch.Tensor, min_z: float, max_z: float,
+                        reciprocal: bool = True) -> torch.Tensor:
+    """(..., 3) jet colors of ``clamp((z - min) / (max - min) * 1023)``.
+
+    ``reciprocal`` divides by the range as the JAX package's jitted exports
+    compute it (a multiply by the f32 reciprocal); ``False`` takes the true
+    division of its eagerly run callers (``init_sphere``)."""
+    lut = _jet_lut(z.device)
+    n = lut.shape[0]
+    span = float(np.float32(max_z - min_z))
+    if reciprocal:
+        t = (z - min_z) * inv(span)
+    else:
+        # a tensor divisor: CUDA would turn a Python scalar into 1/c
+        t = (z - min_z) / torch.tensor(span, device=z.device)
+    c = torch.clamp(t * float(n - 1), 0, n - 1).to(torch.int64)
+    return lut[c]

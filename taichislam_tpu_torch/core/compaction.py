@@ -22,3 +22,20 @@ def compact_mask(mask: torch.Tensor, capacity: int):
     pos = torch.where(mask & (idx < capacity), idx,
                       torch.full_like(idx, capacity))
     return pos, torch.clamp(count, max=capacity), count
+
+
+def compact_sort(mask: torch.Tensor, capacity: int, operands, fills):
+    """Stable compaction of parallel 1-d ``operands`` where ``mask`` holds:
+    survivors move to the front in index order (the order of the JAX
+    package's stable mask-key sort). Returns ([out (capacity,) per
+    operand], kept, total); padding and overflow lanes hold each operand's
+    ``fills`` value."""
+    pos, kept, total = compact_mask(mask, capacity)
+    pos = pos.long()
+    outs = []
+    for arr, fill in zip(operands, fills):
+        out = torch.full((capacity + 1,), fill, dtype=arr.dtype,
+                         device=arr.device)
+        out[pos] = arr.reshape(-1)   # dropped lanes land on the extra slot
+        outs.append(out[:capacity])
+    return outs, kept, total

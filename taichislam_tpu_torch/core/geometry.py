@@ -3,12 +3,44 @@
 Conventions are those of ``taichislam_tpu.core.geometry``: voxel index =
 round(xyz / voxel_scale) with ties away from zero, pinhole back-projection
 with ``i`` the image column and ``j`` the row, ``sign(0) == 0``.
+
+Rounding follows the JAX package as XLA compiles it on the CPU. Inside a
+jitted function XLA rewrites a division by a constant as a multiply by its
+f32 reciprocal (as PyTorch's CUDA division by a Python scalar also does),
+so ``x / c`` is written ``x * inv(c)``; and it contracts multiply-adds into
+fused multiply-adds, computed here with one rounding (``fma``, ``dot3``).
+sqrt is taken in f64 (``sqrt_rn``): PyTorch's vectorized CPU sqrt is not
+correctly rounded. Voxel and pixel indices hang on these roundings.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def inv(c: float) -> float:
+    """f32 reciprocal of a constant divisor (exactly representable)."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
+def fma(a, b, c):
+    """f32 ``a * b + c`` rounded once, as the fused multiply-add XLA's CPU
+    backend contracts these expressions into: the f64 product is exact and
+    the f64 sum is rounded to f32 (a double rounding that differs from a
+    true FMA only on exact f32 ties)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def sqrt_rn(x):
+    """Correctly rounded f32 square root (taken in f64)."""
+    return torch.sqrt(x.double()).float()
+
+
+def dot3(a0, b0, a1, b1, a2, b2):
+    """``a0*b0 + a1*b1 + a2*b2`` with the contraction XLA applies:
+    fma(a2, b2, fma(a0, b0, a1*b1))."""
+    return fma(a2, b2, fma(a0, b0, a1 * b1))
 
 
 def sign(x: torch.Tensor) -> torch.Tensor:
@@ -19,6 +51,25 @@ def sign(x: torch.Tensor) -> torch.Tensor:
 def round_half_away(x: torch.Tensor) -> torch.Tensor:
     """Round to nearest integer, ties away from zero (like C ``round``)."""
     return torch.trunc(x + torch.where(x >= 0, 0.5, -0.5))
+
+
+def ijk_to_xyz(ijk: torch.Tensor, voxel_scale: float) -> torch.Tensor:
+    """Voxel index -> world position of the voxel centre."""
+    return ijk.float() * voxel_scale
+
+
+def color_ind_from_depth_pt(i, j, K_dep, K_color, w: int, h: int):
+    """Re-project depth pixel (col ``i``, row ``j``, f32) into the color
+    image; returns (row index, col index) int32. Out-of-bounds pixels clamp
+    to (0, 0); the bounds test compares the column with ``h`` and the row
+    with ``w``, as the reference does."""
+    fx_c, cx_c, fy_c, cy_c = K_color[0], K_color[2], K_color[4], K_color[5]
+    fx, cx, fy, cy = K_dep[0], K_dep[2], K_dep[4], K_dep[5]
+    color_i = fma((i - cx) / fx, fx_c, cx_c).to(torch.int32)
+    color_j = fma((j - cy) / fy, fy_c, cy_c).to(torch.int32)
+    oob = (color_i < 0) | (color_i >= h) | (color_j < 0) | (color_j >= w)
+    zero = torch.zeros_like(color_i)
+    return torch.where(oob, zero, color_j), torch.where(oob, zero, color_i)
 
 
 def convert_by_base(base_R, base_T, R, T):

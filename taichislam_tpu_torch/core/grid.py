@@ -94,6 +94,15 @@ def block_lin_to_coords(spec: GridSpec, blin: torch.Tensor) -> torch.Tensor:
     return torch.stack([s, bi, bj, bk], dim=-1).to(torch.int32)
 
 
+def block_origin_voxel(spec: GridSpec, block_coords: torch.Tensor
+                       ) -> torch.Tensor:
+    """(..., 4) (s, bi, bj, bk) -> (..., 3) signed voxel index of the
+    block's lower corner."""
+    origin = torch.tensor(spec.origin_voxel, dtype=torch.int32,
+                          device=block_coords.device)
+    return block_coords[..., 1:4] * spec.V + origin
+
+
 def lookup_slots(spec: GridSpec, table: torch.Tensor,
                  blin: torch.Tensor) -> torch.Tensor:
     """Slots of linear block ids; misses map to the garbage slot."""
@@ -153,6 +162,35 @@ def allocate_from_touched(spec: GridSpec, state: GridState,
     return state._replace(num_blocks=state.num_blocks + n_fit,
                           alloc_overflow=state.alloc_overflow +
                           (n_new - n_fit))
+
+
+def reset_grid(state: GridState) -> GridState:
+    """Deallocate every block and zero the channels, in place."""
+    state.table.fill_(-1)
+    state.block_coords.fill_(-1)
+    state.block_active.fill_(False)
+    for v in state.channels.values():
+        v.zero_()
+    return state._replace(num_blocks=torch.zeros_like(state.num_blocks),
+                          alloc_overflow=torch.zeros_like(
+                              state.alloc_overflow))
+
+
+def comp_flat_index(spec: GridSpec, slot, intra_lin, comp: int):
+    """Address component ``comp`` of a (nb, 3, V^3) channel viewed flat."""
+    return (slot * 3 + comp) * spec.voxels_per_block + intra_lin
+
+
+def gather_channel(channel: torch.Tensor, flat_idx: torch.Tensor
+                   ) -> torch.Tensor:
+    """``channel.flat[flat_idx]``; indices past the end read 0."""
+    flat = channel.reshape(-1)
+    n = flat.shape[0]
+    idx = flat_idx.long()
+    ok = (idx >= 0) & (idx < n)
+    vals = flat[torch.where(ok, idx, torch.zeros_like(idx))]
+    return torch.where(ok, vals, torch.zeros((), dtype=flat.dtype,
+                                             device=flat.device))
 
 
 def scatter_max(channel: torch.Tensor, flat_idx: torch.Tensor,

@@ -60,6 +60,13 @@ class BaseMap:
         R_ext, T_ext = ext
         self.recast_depth_to_map(R @ R_ext, T + R @ T_ext, depthmap, texture)
 
+    def recast_pcl_to_map_by_frame(self, frame_id, is_keyframe, pose, ext,
+                                   pcl, rgb_array):
+        """Apply the sensor extrinsic and forward to recast_pcl_to_map."""
+        R, T = pose
+        R_ext, T_ext = ext
+        self.recast_pcl_to_map(R @ R_ext, T + R @ T_ext, pcl, rgb_array)
+
     # -- submap registry -----------------------------------------------------
     def initialize_submap_fields(self, max_submap_num: int):
         self.submap_enabled = True

@@ -1,24 +1,34 @@
-"""DenseESDF: TSDF map with a per-frame incremental ESDF (block mode).
+"""DenseESDF: TSDF map with a per-frame incremental ESDF.
 
-The interval-1 block path of ``taichislam_tpu.models.dense_esdf``: after
-every recast, the frame's touched blocks are gated by
-``esdf_seed_dirty`` and swept by ``esdf_update`` over the dirty blocks plus
-the wavefront left pending by the previous update; a working-set overflow
-grows the capacity bucket and redoes the update.
+Counterpart of ``taichislam_tpu.models.dense_esdf`` with interval-1
+verdicts (``esdf_check_interval=1``, the node's default). After every
+recast the frame's touched blocks are gated by ``esdf_seed_dirty`` and the
+ESDF is updated in one of three modes, chosen as the JAX model chooses:
 
-Not ported yet (ROADMAP.md, Queue A item 3 and item 4): the dirty-window
-and dense-window ESDF modes (callers pass ``esdf_dense_max_voxels=0``) and
-the deferred verdicts of ``esdf_check_interval > 1``. Asking for either
-raises NotImplementedError.
+- ``window``: the dirty blocks' bounding box plus a one-block frozen ring,
+  swept densely (``esdf_update_dense`` with ``dirty_blocks``); the window
+  dims grow from the span stats when dirty blocks do not fit;
+- ``dense``: the observed bounding box swept densely, when the window mode
+  is off (no dirty set, or the window outgrew ``esdf_dense_max_voxels``)
+  and the box fits that budget;
+- ``block``: the compacted block working set (``esdf_update``, kernels K3 /
+  K2), when neither applies — ``esdf_dense_max_voxels`` is 0, or both the
+  window and the observed box have outgrown it.
+
+A working-set overflow grows the mode's capacity, re-queues the dirty set
+and redoes the update. The deferred verdicts of ``esdf_check_interval > 1``
+and ``recast_depth_sequence`` are not ported (ROADMAP.md) and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
-from taichislam_tpu_torch.models.dense_tsdf import DenseTSDF
+from taichislam_tpu_torch.models.dense_tsdf import DenseTSDF, host_export
 from taichislam_tpu_torch.ops import esdf as esdf_ops
 
 
@@ -28,10 +38,6 @@ class DenseESDF(DenseTSDF):
                  esdf_raise_slack_voxels=None, esdf_seed_eps_voxels=None,
                  esdf_dense_max_voxels=2 * 1024 * 1024,
                  esdf_check_interval=1, **kwargs):
-        if esdf_dense_max_voxels:
-            raise NotImplementedError(
-                "window / dense ESDF modes are not ported yet (ROADMAP.md "
-                "Queue A item 3); pass esdf_dense_max_voxels=0")
         if int(esdf_check_interval) > 1:
             raise NotImplementedError(
                 "deferred ESDF verdicts (esdf_check_interval > 1) are not "
@@ -53,6 +59,13 @@ class DenseESDF(DenseTSDF):
         # the working-set edge continue from here next frame
         self._esdf_pending = None
         self._esdf_cap_bucket = 64
+        self._esdf_dims_cached = None
+        self._esdf_nblocks_cached = 1
+        self._esdf_last_mode = "block"
+        self._esdf_last_cap = (64, 64)
+        # dirty-window dims in blocks, grown from the span stats
+        self._esdf_win_dims = (4, 4, 4)
+        self._esdf_win_ok = True
         spec = self.cfg.grid
         shape = (spec.max_blocks + 1, spec.voxels_per_block)
         dev = self.device
@@ -64,13 +77,78 @@ class DenseESDF(DenseTSDF):
         self.esdf_observed = torch.zeros(shape, dtype=torch.bool, device=dev)
         self.last_esdf_sweeps = 0
         self.last_esdf_dirty = -1   # -1: gating not engaged yet
+        self.num_export_ESDF_particles = 0
+        self.export_ESDF = np.zeros((0,), np.float32)
+        self.export_ESDF_xyz = np.zeros((0, 3), np.float32)
 
+    # -- ingestion hooks: update the ESDF after every TSDF update ------------
     def recast_depth_to_map(self, R, T, depthmap, texture):
         super().recast_depth_to_map(R, T, depthmap, texture)
         if self.enable_esdf:
             self.update_esdf()
 
+    def recast_pcl_to_map(self, R, T, xyz_array, rgb_array):
+        super().recast_pcl_to_map(R, T, xyz_array, rgb_array)
+        if self.enable_esdf:
+            self.update_esdf()
+
+    def recast_depth_sequence(self, Rs, Ts, depthmaps, textures=None):
+        raise NotImplementedError(
+            "recast_depth_sequence is not ported (ROADMAP.md Queue A item 11)")
+
+    # -- mode and capacity info -----------------------------------------------
+    def _window_info_dev(self):
+        """(8,) int32 on the device: the active submap's block-coordinate
+        mins and maxs, an any-active flag and the allocated block count."""
+        c4 = self.state.block_coords
+        act = self.state.block_active & (c4[:, 0] == self.active_submap_id)
+        act[-1] = False
+        huge = 1 << 20
+        sel = c4[:, 1:4]
+        mins = torch.where(act[:, None], sel, huge).amin(dim=0)
+        maxs = torch.where(act[:, None], sel, -huge).amax(dim=0)
+        return torch.cat([mins, maxs, act.any().to(torch.int32)[None],
+                          self.state.num_blocks.to(torch.int32)[None]])
+
+    def _dense_window_dims(self, info):
+        """Power-of-two (DBX, DBY, DBZ) block dims of the active submap's
+        bounding box, or None when that window exceeds
+        ``esdf_dense_max_voxels``."""
+        if int(info[6]) == 0:
+            return None
+        spans = info[3:6] - info[0:3] + 1
+
+        def bucket(n):
+            b = 1
+            while b < n:
+                b *= 2
+            return b
+        dims = tuple(int(bucket(s)) for s in spans)
+        V3 = self.cfg.grid.voxels_per_block
+        if dims[0] * dims[1] * dims[2] * V3 > self.esdf_dense_max_voxels:
+            return None
+        return dims
+
+    @staticmethod
+    def _win_bucket(n):
+        """Window-dimension bucket in blocks (~1.5x steps)."""
+        for b in (2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64):
+            if n <= b:
+                return b
+        return int(n)
+
+    def _esdf_host_refresh(self):
+        """Refresh the host's mode and capacity info (one host read)."""
+        info = self._window_info_dev().cpu().numpy()
+        self._esdf_dims_cached = self._dense_window_dims(info)
+        self._esdf_nblocks_cached = int(info[7]) + 1
+
+    # -- the update -----------------------------------------------------------
     def update_esdf(self):
+        sid = self.active_submap_id
+        # updated-voxel gating: of the frame's touched blocks only those
+        # whose seeds moved materially re-enter the working set; a frame
+        # with nothing dirty (and no pending wavefront) costs no sweep
         dirty = None
         if self.esdf_incremental and self.cfg.esdf_seed_eps_voxels >= 0:
             touched = self.last_stats.get("touched_blocks")
@@ -92,37 +170,122 @@ class DenseESDF(DenseTSDF):
                 if self._esdf_pending is not None:
                     dirty = dirty | self._esdf_pending
 
+        self._esdf_host_refresh()
+        dims = self._esdf_dims_cached
+        # consume-once snapshot seeds when gating is on
         snap = {}
         if dirty is not None and self.cfg.esdf_seed_eps_voxels >= 0:
             snap = dict(tsdf_src=self._esdf_seen_tsdf,
                         obs_src=self._esdf_seen_obs)
-        # block mode: the cap bucket tracks the allocated block count
-        full_cap = 128
-        while full_cap < int(self.state.num_blocks) + 1:
-            full_cap *= 2
-        full_cap = min(full_cap, self.esdf_block_cap)
-        cap = min(self._esdf_cap_bucket if dirty is not None else full_cap,
-                  full_cap)
-        (self.esdf, self.esdf_fixed, self.esdf_observed, sweeps, changed,
-         overflow) = esdf_ops.esdf_update(
-            self.cfg, self.max_esdf_sweeps, cap, self.state, self.esdf,
-            self.esdf_fixed, self.active_submap_id, dirty, **snap)
-        self._esdf_pending = changed
-        self._esdf_verdict(dirty, sweeps, overflow, cap, full_cap)
 
-    def _esdf_verdict(self, dirty, sweeps, overflow, cap, full_cap):
-        """One host read of the update's counts; on a working-set overflow
-        grow the cap bucket, re-queue the dirty set and redo."""
-        sweeps, overflow = (int(x) for x in torch.stack(
-            [sweeps.to(torch.int32), overflow.to(torch.int32)]).cpu())
+        spans = torch.zeros((3,), dtype=torch.int32, device=self.device)
+        if dirty is not None and self._esdf_win_ok and \
+                self.esdf_dense_max_voxels:
+            self._esdf_last_mode = "window"
+            (self.esdf, self.esdf_fixed, self.esdf_observed, sweeps,
+             changed, overflow) = esdf_ops.esdf_update_dense(
+                self.cfg, self.max_esdf_sweeps, self._esdf_win_dims,
+                self.state, self.esdf, self.esdf_fixed, sid,
+                dirty_blocks=dirty, **snap)
+            c4 = self.state.block_coords
+            anchor = dirty & self.state.block_active & (c4[:, 0] == sid)
+            anchor[-1] = False
+            huge = 1 << 20
+            mins = torch.where(anchor[:, None], c4[:, 1:4], huge).amin(0)
+            maxs = torch.where(anchor[:, None], c4[:, 1:4], -huge).amax(0)
+            spans = torch.clamp(maxs - mins + 1, min=0)
+        elif dims is not None:
+            self._esdf_last_mode = "dense"
+            (self.esdf, self.esdf_fixed, self.esdf_observed, sweeps,
+             changed, overflow) = esdf_ops.esdf_update_dense(
+                self.cfg, self.max_esdf_sweeps, dims, self.state,
+                self.esdf, self.esdf_fixed, sid)
+        else:
+            full_cap = 128
+            while full_cap < self._esdf_nblocks_cached:
+                full_cap *= 2
+            full_cap = min(full_cap, self.esdf_block_cap)
+            cap = min(self._esdf_cap_bucket if dirty is not None
+                      else full_cap, full_cap)
+            self._esdf_last_mode = "block"
+            self._esdf_last_cap = (cap, full_cap)
+            (self.esdf, self.esdf_fixed, self.esdf_observed, sweeps,
+             changed, overflow) = esdf_ops.esdf_update(
+                self.cfg, self.max_esdf_sweeps, cap, self.state,
+                self.esdf, self.esdf_fixed, sid, dirty, **snap)
+        self._esdf_pending = changed
+        i32 = torch.int32
+        pack = torch.cat([torch.stack([
+            sweeps.to(i32), overflow.to(i32),
+            (dirty.sum(dtype=i32) if dirty is not None
+             else torch.full((), -1, dtype=i32, device=self.device))]),
+            spans.to(i32)])
+        self._esdf_verdict(dirty, pack)
+
+    def _esdf_verdict(self, dirty, pack):
+        """One host read of the update's counts. On a working-set overflow:
+        grow the window (or give it up for block mode), refresh the dense
+        window, or grow the block cap; re-queue the dirty set and redo."""
+        sweeps, overflow, ndirty, sx, sy, sz = (int(x) for x in
+                                                pack.cpu().numpy())
         self.last_esdf_sweeps = sweeps
-        if overflow > 0:
+        if ndirty >= 0:
+            self.last_esdf_dirty = ndirty
+        if overflow <= 0:
+            return
+        if self._esdf_last_mode == "window":
+            # the observed span plus the ring on each side; past the dense
+            # budget the window gives way to block mode
+            want = tuple(self._win_bucket(s + 2) for s in (sx, sy, sz))
+            V3 = self.cfg.grid.voxels_per_block
+            grew = True
+            if want[0] * want[1] * want[2] * V3 > self.esdf_dense_max_voxels:
+                self._esdf_win_ok = False
+            elif want != self._esdf_win_dims:
+                self._esdf_win_dims = tuple(
+                    max(a, b) for a, b in zip(want, self._esdf_win_dims))
+            else:
+                grew = False
+        elif self._esdf_last_mode == "dense":
+            old = self._esdf_dims_cached
+            self._esdf_host_refresh()
+            grew = self._esdf_dims_cached != old
+        else:
+            cap, full_cap = self._esdf_last_cap
             grown = cap
             while grown < cap + overflow:
                 grown *= 2
             grown = min(grown, full_cap)
+            grew = grown > cap
             self._esdf_cap_bucket = grown
-            if dirty is not None:
-                self._esdf_pending = self._esdf_pending | dirty
-            if grown > cap:
-                self.update_esdf()
+        if dirty is not None:
+            self._esdf_pending = self._esdf_pending | dirty
+        if grew:
+            self.update_esdf()
+
+    # -- exports --------------------------------------------------------------
+    def cvt_ESDF_to_voxels_slice(self, z, dz=0.5):
+        x, y, zc, esdf, color, n = esdf_ops.esdf_slice_export(
+            self.cfg, self.max_disp_particles, self._export_block_bucket(),
+            self.state, self.esdf, self.esdf_observed, *self._bases(),
+            self.active_submap_id, z, dz)
+        n = int(n)
+        x, y, zc, esdf, color = host_export(
+            (x, y, zc, esdf, color), n, (-100000.0,) * 3 + (0.0, 0.5))
+        self.export_ESDF_xyz = np.stack([x, y, zc], axis=1)
+        self.export_ESDF = esdf
+        self.export_color = color
+        self.num_export_ESDF_particles = n
+
+    def get_voxels_ESDF_slice(self, z):
+        self.cvt_ESDF_to_voxels_slice(z)
+        return self.export_ESDF_xyz, self.export_ESDF
+
+    def get_esdf_dict(self):
+        """Debug/test helper: dict voxel-tuple -> esdf over observed voxels."""
+        from taichislam_tpu_torch.ops.exports import voxel_ijk_all
+        ijk = voxel_ijk_all(self.cfg.grid, self.state).reshape(-1, 3)
+        mask = self.esdf_observed.reshape(-1)
+        ijk = ijk[mask].cpu().numpy()
+        esdf = self.esdf.reshape(-1)[mask].cpu().numpy()
+        return {tuple(i): e for i, e in zip(ijk, esdf)}

@@ -1,19 +1,26 @@
 """DenseTSDF: voxblox-style TSDF map with the reference's public API.
 
-The per-frame depth path of ``taichislam_tpu.models.dense_tsdf``:
-constructor, adaptive ray-bin bucket, ``recast_depth_to_map`` and
-``count_active``. The map state lives on ``device``.
+Counterpart of ``taichislam_tpu.models.dense_tsdf`` for a single map:
+constructor, adaptive ray-bin bucket, depth and point-cloud ingest
+(textured or not), the mesh-dirty protocol of the incremental mesher,
+surface / slice exports, ``count_active``, the npy submap dict
+(``export_submap``, ``saveMap`` / ``loadMap``, byte-compatible with the
+JAX package's), ``reset`` and the ``init_sphere`` fixture. The map state
+lives on ``device``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
 from taichislam_tpu_torch.core.config import TSDFConfig
+from taichislam_tpu_torch.core.grid import reset_grid
 from taichislam_tpu_torch.models.base_map import BaseMap
+from taichislam_tpu_torch.ops import exports as exports_ops
 from taichislam_tpu_torch.ops import tsdf as tsdf_ops
 
 
@@ -28,6 +35,19 @@ def bin_bucket_for(n: int, headroom_num=21, headroom_den=20,
             if want <= b * num // 4:
                 return b * num // 4
         b *= 2
+
+
+def host_export(arrays, kept, fills):
+    """Host copies of capacity-padded export arrays: the first ``kept``
+    rows come from the device, the rest is the padding ``fills`` the
+    device arrays hold (one small copy instead of the whole capacity)."""
+    out = []
+    for a, fill in zip(arrays, fills):
+        h = np.empty(tuple(a.shape), np.float32)
+        h[kept:] = fill
+        h[:kept] = a[:kept].cpu().numpy()
+        out.append(h)
+    return out
 
 
 class DenseTSDF(BaseMap):
@@ -85,7 +105,46 @@ class DenseTSDF(BaseMap):
         # adaptive ray-bin capacity: the lattice scales with the bucket
         self._bin_bucket = min(4096, self.cfg.max_bins)
         self.last_stats = {}
+        # mesh-dirty protocol (models/mesher.py): the device union of the
+        # touched-block bitmaps since the mesher last consumed them; the
+        # full flag covers events that can move any voxel
+        self._mesh_dirty_full = True
+        self._mesh_dirty = None
+        # host-side export mirrors (the reference's export_* fields)
+        self.num_TSDF_particles = 0
+        self.export_TSDF_xyz = np.zeros((0, 3), np.float32)
+        self.export_color = np.zeros((0, 3), np.float32)
+        self.export_TSDF = np.zeros((0,), np.float32)
 
+    # -- mesh-dirty protocol --------------------------------------------------
+    def _mark_mesh_dirty(self, touched):
+        if self._mesh_dirty_full or touched is None:
+            return
+        self._mesh_dirty = touched if self._mesh_dirty is None \
+            else (self._mesh_dirty | touched)
+
+    def _mark_mesh_dirty_full(self):
+        self._mesh_dirty_full = True
+        self._mesh_dirty = None
+
+    def consume_mesh_dirty(self):
+        """(needs_full, bitmap), clearing the pending set: ``needs_full``
+        after events that can move any voxel (and on first use); otherwise
+        ``bitmap`` is the per-slot union of the blocks touched since the
+        last consume (None: nothing changed)."""
+        if self._mesh_dirty_full:
+            self._mesh_dirty_full = False
+            self._mesh_dirty = None
+            return True, None
+        d = self._mesh_dirty
+        self._mesh_dirty = None
+        return False, d
+
+    def finalization_current_submap(self):
+        # the mesher extracts the ACTIVE submap; a switch changes it wholesale
+        self._mark_mesh_dirty_full()
+
+    # -- ingestion ------------------------------------------------------------
     def _recast_cfg(self):
         if self._bin_bucket >= self.cfg.max_bins:
             return self.cfg
@@ -97,25 +156,196 @@ class DenseTSDF(BaseMap):
         n = int(pack[0]) + int(pack[1])
         self._bin_bucket = min(bin_bucket_for(n), self.cfg.max_bins)
 
-    def recast_depth_to_map(self, R, T, depthmap, texture):
-        """Fuse one uint16-mm depth image taken at world pose (R, T)."""
-        self.set_pose(R, T)
-        dev = self.device
-        depth = torch.from_numpy(np.asarray(depthmap).astype(np.int32)).to(
-            dev)
-        self.state, stats = tsdf_ops.integrate_depth(
-            self._recast_cfg(), self.state, depth,
-            torch.from_numpy(self.input_R).to(dev),
-            torch.from_numpy(self.input_T).to(dev),
-            torch.from_numpy(self.K_cam_dep).to(dev), self.active_submap_id)
+    def _tensor(self, a, dtype=None):
+        return torch.as_tensor(np.asarray(a, dtype=dtype), device=self.device)
+
+    def _after_recast(self, stats):
         self.last_stats = stats
+        self._mark_mesh_dirty(stats.get("touched_blocks"))
         self._update_bin_bucket(stats)
 
+    def recast_depth_to_map(self, R, T, depthmap, texture):
+        """Fuse one uint16-mm depth image taken at world pose (R, T), with
+        its (h, w, 3) uint8 texture when the map is textured."""
+        self.set_pose(R, T)
+        tex = texture if self.enable_texture else np.zeros((1, 1, 3),
+                                                           np.uint8)
+        kc = self.K_cam_color if self.K_cam_color is not None else \
+            self.K_cam_dep
+        self.state, stats = tsdf_ops.integrate_depth(
+            self._recast_cfg(), self.state,
+            self._tensor(depthmap, np.int32), self._tensor(tex),
+            self._tensor(self.input_R), self._tensor(self.input_T),
+            self._tensor(self.K_cam_dep), self._tensor(kc),
+            self.active_submap_id)
+        self._after_recast(stats)
+
+    def recast_pcl_to_map(self, R, T, xyz_array, rgb_array):
+        """Fuse one point cloud (sensor frame, rotated only) taken at world
+        pose (R, T)."""
+        self.set_pose(R, T)
+        rgb = rgb_array if self.enable_texture else np.zeros(
+            (len(xyz_array), 3), np.float32)
+        self.state, stats = tsdf_ops.integrate_pcl(
+            self._recast_cfg(), self.state,
+            self._tensor(xyz_array, np.float32), self._tensor(rgb,
+                                                              np.float32),
+            self._tensor(self.input_R), self._tensor(self.input_T),
+            self.active_submap_id)
+        self._after_recast(stats)
+
+    # -- exports --------------------------------------------------------------
+    def _export_block_bucket(self):
+        """Block cap of the exports: the allocated block count, bucketed to
+        a power of two."""
+        return min(exports_ops.pow2_capacity(
+            int(self.state.num_blocks) + 1, lo=64), self.cfg.max_blocks)
+
+    def _bases(self):
+        return (self._tensor(self.submaps_base_R_np, np.float32),
+                self._tensor(self.submaps_base_T_np, np.float32))
+
+    def _surface_export(self, capacity):
+        x, y, z, color, tsdf, n = exports_ops.tsdf_surface_export(
+            self.cfg, capacity, self._export_block_bucket(), self.state,
+            *self._bases(), self.active_submap_id)
+        n = int(n)
+        x, y, z, color, tsdf = host_export(
+            (x, y, z, color, tsdf), n, (-100000.0,) * 3 + (0.5, 0.0))
+        return np.stack([x, y, z], axis=1), color, tsdf, n
+
+    def cvt_occupy_to_voxels(self):
+        self.cvt_TSDF_surface_to_voxels()
+
+    def cvt_TSDF_surface_to_voxels(self):
+        (self.export_TSDF_xyz, self.export_color, self.export_TSDF,
+         self.num_TSDF_particles) = self._surface_export(
+            self.max_disp_particles)
+
+    def cvt_TSDF_surface_to_voxels_to(self, num_particles, max_disp_particles,
+                                      export_TSDF_xyz, export_color):
+        """Append the surface export to host buffers that already hold
+        ``num_particles``; returns the new count."""
+        xyz, color, _, kept = self._surface_export(max_disp_particles)
+        copy = min(kept, max(0, max_disp_particles - num_particles))
+        if copy > 0:
+            sl = slice(num_particles, num_particles + copy)
+            export_TSDF_xyz[sl] = xyz[:copy]
+            export_color[sl] = color[:copy]
+        return num_particles + copy
+
+    def cvt_TSDF_to_voxels_slice(self, z, dz=0.5, clear_last=True):
+        x, y, zc, tsdf, color, n = exports_ops.tsdf_slice_export(
+            self.cfg, self.max_disp_particles, self._export_block_bucket(),
+            self.state, *self._bases(), self.active_submap_id, z, dz)
+        n = int(n)
+        x, y, zc, tsdf, color = host_export(
+            (x, y, zc, tsdf, color), n, (-100000.0,) * 3 + (0.0, 0.5))
+        self.export_TSDF_xyz = np.stack([x, y, zc], axis=1)
+        self.export_TSDF = tsdf
+        self.export_color = color
+        self.num_TSDF_particles = n
+
+    def get_voxels_TSDF_surface(self):
+        self.cvt_TSDF_surface_to_voxels()
+        if self.enable_texture:
+            return self.export_TSDF_xyz, self.export_TSDF, self.export_color
+        return self.export_TSDF_xyz, self.export_TSDF, None
+
+    def get_voxels_TSDF_slice(self, z):
+        self.cvt_TSDF_to_voxels_slice(z)
+        return self.export_TSDF_xyz, self.export_TSDF
+
+    def get_voxels_occupy(self):
+        self.cvt_TSDF_surface_to_voxels()
+        return self.export_TSDF_xyz, self.export_color
+
+    # -- serialization --------------------------------------------------------
     def count_active(self):
-        """Observed voxels in the active submap."""
-        st = self.state
-        blk = st.block_active & (st.block_coords[:, 0] ==
-                                 self.active_submap_id)
-        blk[-1] = False
-        obs = st.channels["TSDF_observed"] > 0
-        return int((obs & blk[:, None]).sum())
+        return int(exports_ops.count_active(self.cfg, self.state,
+                                            self.active_submap_id))
+
+    def to_numpy(self):
+        cap = exports_ops.pow2_capacity(max(self.count_active(), 1))
+        idx, tsdf, w, occ, col, kept, _ = exports_ops.sparse_gather(
+            self.cfg, cap, self._export_block_bucket(), self.state,
+            self.active_submap_id)
+        k = int(kept)
+        col_np = col[:k].cpu().numpy() if self.enable_texture else \
+            np.array([])
+        return (idx[:k].cpu().numpy(), tsdf[:k].cpu().numpy(),
+                w[:k].cpu().numpy(), occ[:k].cpu().numpy(), col_np)
+
+    def _submap_dict(self, indices, tsdf, w_tsdf, occupy, color):
+        return {
+            "indices": indices,
+            "TSDF": tsdf,
+            "W_TSDF": w_tsdf,
+            "color": color if color.size else np.array([]),
+            "occupy": occupy,
+            "map_scale": [self.map_size_xy, self.map_size_z],
+            "voxel_scale": self.voxel_scale,
+            "texture_enabled": self.enable_texture,
+            "num_voxel_per_blk_axis": self.num_voxel_per_blk_axis,
+        }
+
+    def export_submap(self):
+        """The active submap's observed voxels as the submap wire dict
+        (int16 indices, f16 TSDF / W_TSDF / color, int8 occupy)."""
+        s = time.time()
+        cap = exports_ops.pow2_capacity(max(self.count_active(), 1))
+        buf = exports_ops.sparse_gather_packed(
+            self.cfg, cap, self._export_block_bucket(), self.state,
+            self.active_submap_id)
+        indices, tsdf, w_tsdf, occupy, color, _, _ = \
+            exports_ops.unpack_sparse_delivery(buf, cap, self.enable_texture)
+        obj = self._submap_dict(indices, tsdf, w_tsdf, occupy, color)
+        print(f"Export submap {self.active_submap_id} to numpy, voxels "
+              f"{len(tsdf)/1024:.1f}k, time: {1000*(time.time()-s):.1f}ms")
+        return obj
+
+    def load_numpy(self, submap_id, indices, tsdf, w_tsdf, occ, color):
+        n = len(tsdf)
+        cap = exports_ops.pow2_capacity(max(n, 1))
+
+        def pad(a, tail=()):
+            out = np.zeros((cap,) + tail, np.float32)
+            if n:
+                out[:n] = np.asarray(a, np.float32).reshape((n,) + tail)
+            return self._tensor(out)
+
+        idx = np.zeros((cap, 3), np.int32)
+        idx[:n] = np.asarray(indices, np.int32)
+        col = pad(color, (3,)) if (self.enable_texture and
+                                   np.asarray(color).size) else \
+            self._tensor(np.zeros((cap, 3), np.float32))
+        self.state = exports_ops.sparse_scatter(
+            self.cfg, self.state, submap_id, self._tensor(idx), pad(tsdf),
+            pad(w_tsdf), pad(occ), col, n)
+        self._mark_mesh_dirty_full()
+
+    def saveMap(self, filename):
+        np.save(filename, self.export_submap())
+
+    @staticmethod
+    def loadMap(filename, device=None):
+        obj = np.load(filename, allow_pickle=True).item()
+        mapping = DenseTSDF(
+            map_scale=obj["map_scale"], voxel_scale=obj["voxel_scale"],
+            texture_enabled=obj["texture_enabled"],
+            num_voxel_per_blk_axis=obj["num_voxel_per_blk_axis"],
+            is_global_map=True, device=device)
+        mapping.load_numpy(0, obj["indices"], obj["TSDF"], obj["W_TSDF"],
+                           obj["occupy"], obj["color"])
+        print(f"[SubmapMapping] Loaded {len(obj['TSDF'])} voxels from "
+              f"{filename}")
+        return mapping
+
+    def reset(self):
+        self.state = reset_grid(self.state)
+        self._mark_mesh_dirty_full()
+
+    def init_sphere(self):
+        self.state = tsdf_ops.init_sphere(self.cfg, self.state,
+                                          self.active_submap_id)
+        self._mark_mesh_dirty_full()

@@ -1,18 +1,23 @@
-"""Incremental ESDF by masked Jacobi sweeps, block mode (PyTorch).
+"""Incremental ESDF by masked Jacobi sweeps (PyTorch).
 
-Counterpart of ``taichislam_tpu.ops.esdf`` for the per-frame block path:
-``esdf_seed_dirty`` (updated-voxel gating) and ``esdf_update`` over a
-compacted working set (the dirty blocks plus a frozen rim, Morton-ordered
-rows), swept in the lane-fused layout ``(rows, W, W*W)`` =
-``[j | i*W + k]``, W = V + 2. See the JAX module for the algorithm.
+Counterpart of ``taichislam_tpu.ops.esdf``:
 
-Dispatch follows the JAX path: the loop kernel K3 runs whenever
-``max_sweeps >= 2`` and ``esdf_force_sweeps`` is off, the per-sweep kernel
-K2 otherwise. The XLA sweep body and the dense/window modes are not ported.
+- ``esdf_seed_dirty``: updated-voxel gating of the frame's touched blocks;
+- ``esdf_update``, block mode: a compacted working set (the dirty blocks
+  plus a frozen rim, Morton-ordered rows), swept in the lane-fused layout
+  ``(rows, W, W*W)`` = ``[j | i*W + k]``, W = V + 2, by the loop kernel K3
+  whenever ``max_sweeps >= 2`` and ``esdf_force_sweeps`` is off, by the
+  per-sweep kernel K2 otherwise (the XLA sweep body is not ported);
+- ``esdf_update_dense``, the dense-window and dirty-window modes: the
+  observed (or dirty) bounding box swept as one dense grid with full-length
+  axis scans. The JAX package computes these in XLA, outside any Pallas
+  kernel, and so do these plain PyTorch functions;
+- ``esdf_slice_export``: the ESDF z-slice as jet-colored particles.
 
-``esdf_seed_dirty`` updates ``seen_tsdf`` / ``seen_obs`` in place;
-``esdf_update`` updates ``prev_esdf`` / ``prev_fixed`` in place and returns
-them.
+See the JAX module for the algorithms. ``esdf_seed_dirty`` updates
+``seen_tsdf`` / ``seen_obs`` in place; ``esdf_update`` updates
+``prev_esdf`` / ``prev_fixed`` in place and returns them;
+``esdf_update_dense`` returns new tensors.
 """
 
 from __future__ import annotations
@@ -22,9 +27,10 @@ import functools
 import numpy as np
 import torch
 
-from taichislam_tpu_torch.core.compaction import compact_mask
+from taichislam_tpu_torch.core.compaction import compact_mask, compact_sort
 from taichislam_tpu_torch.core.config import TSDFConfig
-from taichislam_tpu_torch.core.grid import lookup_slots
+from taichislam_tpu_torch.core.geometry import inv, sign
+from taichislam_tpu_torch.core.grid import block_origin_voxel, lookup_slots
 from taichislam_tpu_torch.ops.kernels.esdf_sweep import (ENC_BIG,
                                                          esdf_sweep,
                                                          esdf_sweep_loop)
@@ -55,6 +61,34 @@ def neighbor_slot_cols(spec, state, rows):
                 blin = (ni * spec.bn_xy + nj) * spec.bn_z + nk + base
                 cols.append(torch.where(ok, blin, torch.full_like(blin, -1)))
     return lookup_slots(spec, state.table, torch.stack(cols, dim=0))
+
+
+def neighbor_slot_table(spec, state, rows):
+    """(n, 3, 3, 3) view of :func:`neighbor_slot_cols`."""
+    return neighbor_slot_cols(spec, state, rows).t().reshape(-1, 3, 3, 3)
+
+
+def assemble_halo(tiles, nslots, V, fill, center):
+    """(n, V+2, V+2, V+2) halos of ``n`` blocks: the interiors are
+    ``center`` (n, V, V, V), the 26 boundary slabs are gathered from the
+    full-size ``tiles`` (nb, V, V, V) through the (n, 3, 3, 3) neighbour
+    slot table ``nslots`` (the garbage row of ``tiles`` holds ``fill``)."""
+    n = center.shape[0]
+    halo = torch.full((n, V + 2, V + 2, V + 2), fill, dtype=tiles.dtype,
+                      device=tiles.device)
+    halo[:, 1:V + 1, 1:V + 1, 1:V + 1] = center
+    src = {1: slice(0, 1), -1: slice(V - 1, V), 0: slice(0, V)}
+    dst = {1: slice(V + 1, V + 2), -1: slice(0, 1), 0: slice(1, V + 1)}
+    nl = nslots.long()
+    for di in (-1, 0, 1):
+        for dj in (-1, 0, 1):
+            for dk in (-1, 0, 1):
+                if di == 0 and dj == 0 and dk == 0:
+                    continue
+                slab = tiles[:, src[di], src[dj], src[dk]]
+                halo[:, dst[di], dst[dj], dst[dk]] = \
+                    slab[nl[:, di + 1, dj + 1, dk + 1]]
+    return halo
 
 
 def _part1by2(x):
@@ -366,3 +400,296 @@ def esdf_update(cfg: TSDFConfig, max_sweeps: int, block_cap: int, state,
         changed_blocks[-1] = False
     return (prev_esdf, prev_fixed, participate_full, sweeps, changed_blocks,
             overflow_in)
+
+
+# ---------------------------------------------------------------------------
+# z-slice export
+# ---------------------------------------------------------------------------
+
+def esdf_slice_export(cfg: TSDFConfig, capacity: int, block_cap: int, state,
+                      esdf, participate, base_R, base_T, active_submap: int,
+                      z: float, dz: float):
+    """Observed ESDF voxels whose signed z-index k lies in
+    ``(int(z/voxel) - dz, int(z/voxel) + dz)``, compacted in linear-index
+    order, colored by jet over [-max_ray/4, max_ray/4]. Returns (x, y, z,
+    esdf, color (capacity, 3), kept), each padded to ``capacity``."""
+    from taichislam_tpu_torch.core.colormap import color_from_colormap
+    from taichislam_tpu_torch.ops.exports import (_compact_blocks,
+                                                  _gathered_ijk_c,
+                                                  _gathered_xyz_c,
+                                                  _intra_offsets)
+    spec = cfg.grid
+    nb = spec.max_blocks + 1
+    V3 = spec.voxels_per_block
+    dev = esdf.device
+    base = block_origin_voxel(spec, state.block_coords)        # (nb, 3)
+    kidx = (base[:, 2:3] + _intra_offsets(spec.V, dev)[None, :, 2]).float()
+    lo, hi = _slice_bounds(cfg, z, dz)
+    pre_mask = participate.reshape(nb, V3) & (kidx > lo) & (kidx < hi)
+
+    slot_of, bvalid, _, _ = _compact_blocks(spec, pre_mask, block_cap)
+    coords, ijk_c = _gathered_ijk_c(spec, state, slot_of)
+    x, y, zc = _gathered_xyz_c(spec, coords, ijk_c, base_R, base_T,
+                               cfg.is_global_map)
+    sl = slot_of.long()
+    mask = pre_mask[sl] & bvalid[:, None]
+    esdf_g = esdf.reshape(nb, V3)[sl]
+    outs, kept, _ = compact_sort(
+        mask.reshape(-1), capacity,
+        [x.reshape(-1), y.reshape(-1), zc.reshape(-1), esdf_g.reshape(-1)],
+        [-100000.0, -100000.0, -100000.0, 0.0])
+    rng = cfg.max_ray_length / 4.0
+    col = color_from_colormap(outs[3], -rng, rng)
+    col = torch.where((torch.arange(capacity, device=dev) < kept)[:, None],
+                      col, torch.full((), 0.5, device=dev))
+    return outs[0], outs[1], outs[2], outs[3], col, kept
+
+
+def _slice_bounds(cfg: TSDFConfig, z: float, dz: float):
+    """The z-index window of a slice in f32, as the jitted JAX exports
+    compute it: ``trunc(z / voxel)`` with the reciprocal multiply."""
+    f32 = np.float32
+    zindex = np.trunc(f32(z) * f32(inv(cfg.voxel_scale)))
+    return float(zindex - f32(dz)), float(zindex + f32(dz))
+
+
+# ---------------------------------------------------------------------------
+# dense-window sweep mode
+# ---------------------------------------------------------------------------
+
+_SWEEP_CHECK = 2   # sweeps between host reads of the loop's active flag
+
+
+def _dshift(x, s, axis, fill):
+    """Shift a dense 3-D grid by ``s`` along ``axis``, filling vacated
+    cells with ``fill``."""
+    W_ = x.shape[axis]
+    out = torch.full_like(x, fill)
+    if s > 0:
+        out.narrow(axis, s, W_ - s).copy_(x.narrow(axis, 0, W_ - s))
+    else:
+        out.narrow(axis, 0, W_ + s).copy_(x.narrow(axis, -s, W_ + s))
+    return out
+
+
+def _dense_extrema(h, op, fill):
+    """Class-wise 26-neighbourhood extrema (faces, edges, corners)."""
+    ax = op(_dshift(h, 1, 0, fill), _dshift(h, -1, 0, fill))
+    ay = op(_dshift(h, 1, 1, fill), _dshift(h, -1, 1, fill))
+    az = op(_dshift(h, 1, 2, fill), _dshift(h, -1, 2, fill))
+    faces = op(op(ax, ay), az)
+    exy = op(_dshift(ax, 1, 1, fill), _dshift(ax, -1, 1, fill))
+    exz = op(_dshift(ax, 1, 2, fill), _dshift(ax, -1, 2, fill))
+    eyz = op(_dshift(ay, 1, 2, fill), _dshift(ay, -1, 2, fill))
+    edges = op(op(exy, exz), eyz)
+    corners = op(_dshift(exy, 1, 2, fill), _dshift(exy, -1, 2, fill))
+    return faces, edges, corners
+
+
+def _dbl_seg_scan(w, brk, shift_fn, n_steps, big):
+    """Inclusive segmented min by Hillis-Steele doubling: a flagged
+    position contributes its own value but blocks everything behind it."""
+    m, b = w, brk
+    s = 1
+    for _ in range(n_steps):
+        m = torch.minimum(m, torch.where(b, big, shift_fn(m, s, big)))
+        b = b | shift_fn(b, s, True)
+        s *= 2
+    return m
+
+
+def _dense_scan_candidates(h, brk, v1, big):
+    """Full-window multi-hop axis min-plus candidates (self-excluded) on a
+    dense (X, Y, Z) grid. The products ``pos·v1`` are rounded on their own:
+    XLA does not contract them into the adds here."""
+    out = torch.full_like(h, big)
+    for axis in range(3):
+        W_ = h.shape[axis]
+        shape = [1, 1, 1]
+        shape[axis] = W_
+        pos = torch.arange(W_, dtype=h.dtype, device=h.device).reshape(shape)
+        pv = pos * v1
+        n_steps = max(1, int(np.ceil(np.log2(W_))))
+
+        def sh_f(x, s, fill, axis=axis):
+            return _dshift(x, s, axis, fill)
+
+        def sh_b(x, s, fill, axis=axis):
+            return _dshift(x, -s, axis, fill)
+
+        incl_f = _dbl_seg_scan(h - pv, brk, sh_f, n_steps, big) + pv
+        incl_b = _dbl_seg_scan(h + pv, brk, sh_b, n_steps, big) - pv
+        out = torch.minimum(out, torch.minimum(sh_f(incl_f, 1, big) + v1,
+                                               sh_b(incl_b, 1, big) + v1))
+    return out
+
+
+def esdf_update_dense(cfg: TSDFConfig, max_sweeps: int, dims_blocks, state,
+                      prev_esdf, prev_fixed, active_submap: int,
+                      dirty_blocks=None, tsdf_src=None, obs_src=None):
+    """Dense-window variant of :func:`esdf_update` (same returns, same
+    optional consume-once seed source).
+
+    ``dims_blocks`` is the (DBX, DBY, DBZ) window in blocks; its origin is
+    the minimum coordinate of the participating blocks (with
+    ``dirty_blocks``: of the dirty blocks, less a one-block ring, and the
+    in-window non-dirty blocks are frozen Dirichlet sources). Participating
+    (dirty) blocks that do not fit are counted in the overflow. The sweep
+    loop runs on the device with an ``active`` flag, so the sweep count
+    equals the JAX while-loop's; the host reads the flag every
+    ``_SWEEP_CHECK`` sweeps to stop early."""
+    spec = cfg.grid
+    V = spec.V
+    nb = spec.max_blocks + 1
+    V3 = spec.voxels_per_block
+    DBX, DBY, DBZ = dims_blocks
+    NBD = DBX * DBY * DBZ
+    dev = prev_esdf.device
+    f32 = np.float32
+    gamma = float(f32(cfg.voxel_scale))
+    max_ray = float(f32(cfg.max_ray_length))
+    v1 = gamma
+    v2 = float(f32(np.sqrt(2.0) * cfg.voxel_scale))
+    v3c = float(f32(np.sqrt(3.0) * cfg.voxel_scale))
+    eps = float(f32(max(cfg.esdf_raise_slack_voxels * cfg.voxel_scale,
+                        1e-4)))
+    eps_conv = float(f32(cfg.esdf_converge_eps))
+    BIGF = 1e9
+
+    c4 = state.block_coords
+    blk = state.block_active & (c4[:, 0] == int(active_submap))
+    blk[-1] = False
+    if dirty_blocks is None:
+        anchor = blk
+        ring = 0
+    else:
+        anchor = blk & dirty_blocks
+        anchor[-1] = False
+        ring = 1
+    huge = 1 << 20
+    org = torch.where(anchor[:, None], c4[:, 1:4],
+                      torch.full_like(c4[:, 1:4], huge)).amin(dim=0) - ring
+    dbi, dbj, dbk = (c4[:, 1 + a] - org[a] for a in range(3))
+    in_win = blk & (dbi >= 0) & (dbi < DBX) & (dbj >= 0) & (dbj < DBY) & \
+        (dbk >= 0) & (dbk < DBZ)
+    in_core = (dbi >= ring) & (dbi < DBX - ring) & (dbj >= ring) & \
+        (dbj < DBY - ring) & (dbk >= ring) & (dbk < DBZ - ring)
+    overflow = (anchor & ~in_core).sum(dtype=torch.int32)
+    dlin = torch.where(in_win, (dbi * DBY + dbj) * DBZ + dbk,
+                       torch.full_like(dbi, NBD)).long()
+
+    X, Y, Z = DBX * V, DBY * V, DBZ * V
+
+    def to_dense(rows, fill):
+        d = torch.full((NBD + 1, V3), fill, dtype=rows.dtype, device=dev)
+        d[dlin] = rows
+        d = d[:NBD].reshape(DBX, DBY, DBZ, V, V, V).permute(0, 3, 1, 4, 2, 5)
+        return d.reshape(X, Y, Z)
+
+    def from_dense(d):
+        rows = d.reshape(DBX, V, DBY, V, DBZ, V).permute(
+            0, 2, 4, 1, 3, 5).reshape(NBD, V3)
+        rows = torch.cat([rows, torch.zeros((1, V3), dtype=d.dtype,
+                                            device=dev)])
+        return rows[dlin]
+
+    tsdf_full_src = state.channels["TSDF"] if tsdf_src is None else tsdf_src
+    obs_full_src = (state.channels["TSDF_observed"] > 0 if obs_src is None
+                    else obs_src)
+    tsdf = to_dense(tsdf_full_src, 0).float()
+    obs = to_dense(obs_full_src & in_win[:, None], False)
+    prev_e = to_dense(prev_esdf, 0.0)
+    prev_f = to_dense(prev_fixed, 0)
+
+    participate = obs
+    fixed = participate & (tsdf.abs() < gamma)
+    seed = torch.where(fixed, tsdf, sign(tsdf) * max_ray)
+    prev_ok = (torch.sign(prev_e) == torch.sign(seed)) & participate & \
+        (prev_e != 0) & ~((prev_f > 0) & ~fixed)
+    esdf0 = torch.where(fixed, seed,
+                        torch.where(prev_ok,
+                                    torch.clamp(prev_e, -max_ray, max_ray),
+                                    seed))
+    esdf0 = torch.where(participate, esdf0, 0.0)
+
+    pos_side = participate & ~fixed & (tsdf >= 0)
+    neg_side = participate & ~fixed & (tsdf < 0)
+    pos_src = participate & (fixed | (tsdf >= gamma))
+    neg_src = participate & (fixed | (tsdf <= -gamma))
+    if dirty_blocks is not None:
+        # freeze the in-window non-dirty blocks (Dirichlet rim)
+        wb = torch.zeros((NBD + 1,), dtype=torch.bool, device=dev)
+        wb[dlin] = anchor
+        upd = wb[:NBD].reshape(DBX, 1, DBY, 1, DBZ, 1).expand(
+            DBX, V, DBY, V, DBZ, V).reshape(X, Y, Z)
+        pos_side &= upd
+        neg_side &= upd
+    brk_lo = ~pos_src | fixed
+    brk_hi = ~neg_src | fixed
+
+    def sweep(esdf):
+        lo = torch.where(pos_src, esdf, BIGF)
+        hi = torch.where(neg_src, esdf, -BIGF)
+        fl, el, cl = _dense_extrema(lo, torch.minimum, BIGF)
+        fh, eh, ch = _dense_extrema(hi, torch.maximum, -BIGF)
+        cand_lo = torch.minimum(torch.minimum(fl + v1, el + v2), cl + v3c)
+        cand_hi = torch.maximum(torch.maximum(fh - v1, eh - v2), ch - v3c)
+        cand_lo = torch.minimum(cand_lo,
+                                _dense_scan_candidates(lo, brk_lo, v1, BIGF))
+        cand_hi = torch.maximum(cand_hi,
+                                -_dense_scan_candidates(-hi, brk_hi, v1,
+                                                        BIGF))
+        new = torch.where(cand_lo <= esdf + eps, torch.minimum(esdf, cand_lo),
+                          torch.clamp(cand_lo, max=max_ray))
+        new = torch.where(pos_side, new, esdf)
+        new_n = torch.where(cand_hi >= esdf - eps,
+                            torch.maximum(esdf, cand_hi),
+                            torch.clamp(cand_hi, min=-max_ray))
+        new = torch.where(neg_side, new_n, new)
+        return new, ((new - esdf).abs() > eps_conv).any()
+
+    # the JAX while-loop: a sweep runs while the previous one changed the
+    # field; the flag stays on the device between host checks
+    esdf_d = esdf0
+    active = torch.ones((), dtype=torch.bool, device=dev)
+    sweeps = torch.zeros((), dtype=torch.int32, device=dev)
+    for s in range(max_sweeps):
+        if s % _SWEEP_CHECK == 0 and s > 0 and not bool(active):
+            break
+        new, changed = sweep(esdf_d)
+        esdf_d = torch.where(active, new, esdf_d)
+        sweeps = sweeps + active.to(torch.int32)
+        active = active & changed
+
+    esdf_rows = from_dense(esdf_d)
+    fixed_rows = from_dense(fixed.to(torch.int8))
+    part_rows = from_dense(participate)
+
+    participate_full = obs_full_src & blk[:, None]
+    keep = in_win[:, None] & part_rows
+    if dirty_blocks is not None:
+        keep &= anchor[:, None]          # frozen rim rows pass through
+    esdf_out = torch.where(keep, esdf_rows,
+                           torch.where(participate_full, prev_esdf, 0.0))
+    fixed_out = torch.where(keep, fixed_rows,
+                            torch.where(participate_full, prev_fixed,
+                                        0).to(torch.int8))
+    rowdiff = keep & (((esdf_rows - prev_esdf).abs() > eps_conv) |
+                      (fixed_rows != prev_fixed))
+    changed_blocks = rowdiff.any(dim=1)
+    changed_blocks[-1] = False
+    if dirty_blocks is not None:
+        # a dirty block whose boundary shell changed wakes its
+        # 26-neighbourhood next frame (dilation on the window-block grid)
+        shell_row = (rowdiff & _shell_mask(V, dev)[None, :]).any(dim=1)
+        wchg = torch.zeros((NBD + 1,), dtype=torch.bool, device=dev)
+        wchg[dlin] = shell_row
+        wchg = wchg[:NBD].reshape(DBX, DBY, DBZ)
+        for ax in range(3):
+            wchg = wchg | _dshift(wchg, -1, ax, False) | \
+                _dshift(wchg, 1, ax, False)
+        wake = wchg.reshape(-1)[torch.clamp(dlin, max=NBD - 1)] & in_win
+        changed_blocks = changed_blocks | (blk & wake)
+        changed_blocks[-1] = False
+    return esdf_out, fixed_out, participate_full, sweeps, changed_blocks, \
+        overflow

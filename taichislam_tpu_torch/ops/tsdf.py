@@ -1,39 +1,36 @@
-"""Voxblox-style TSDF integration (untextured), on PyTorch tensors.
+"""Voxblox-style TSDF integration, untextured and textured, on PyTorch tensors.
 
 Counterpart of ``taichislam_tpu.ops.tsdf``: bin the frame's points by
 sensor-local voxel, march a dense (steps, bins) lattice from the sensor
-through each bin's mean point, sum Σw and Σw·d per voxel with the sorted
-segmented reduction (K1, ``ops/kernels/seg_accum.py``), and combine with
-the weighted-average rule. The arithmetic follows the JAX functions op by
-op, so voxel rounding agrees.
+through each bin's mean point, sum Σw and Σw·d (and, textured, Σw·c per
+color component) per voxel with the sorted segmented reduction (K1,
+``ops/kernels/seg_accum.py``), and combine with the weighted-average rule.
+The arithmetic follows the JAX functions op by op, so voxel rounding agrees
+(see ``core/geometry.py`` for the rounding rules).
 
 Kept on purpose: ``w_x_p`` receives the unsigned distance (the reference's
-quirk), and march values are rounded to f16 before accumulation (the JAX
-path's ``vals_f16``), because both change results.
+quirk); march values are rounded to f16 in pairs before accumulation (the
+JAX path's ``vals_f16``; an odd last value stays f32), because both change
+results; and the texture combines as the per-frame weighted mean of the
+JAX package's kernel path, not the last-writer scatter of its XLA path.
 
-Rounding follows the JAX package as XLA compiles it on the CPU. Division
-by a constant is a multiply by its f32 reciprocal, as XLA
-rewrites it in the JAX package (and as PyTorch's CUDA division by a Python
-scalar also does): ``x / c`` is written ``x * _inv(c)`` so that the CPU and
-the card round alike and agree with the JAX reference; and the
-multiply-adds that XLA contracts into FMAs are computed with one rounding
-(``_fma``), so voxel indices agree exactly.
-
-``integrate`` and ``integrate_depth`` update the state's tensors IN PLACE
-and return (state, stats).
+``integrate``, ``integrate_depth``, ``integrate_pcl`` and ``init_sphere``
+update the state's tensors IN PLACE and return the state (and stats).
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
 
 from taichislam_tpu_torch.core import geometry
+from taichislam_tpu_torch.core.colormap import color_from_colormap
 from taichislam_tpu_torch.core.config import TSDFConfig
+from taichislam_tpu_torch.core.geometry import dot3, fma, inv, sqrt_rn
 from taichislam_tpu_torch.core.grid import (GridState, allocate_blocks,
+                                            comp_flat_index,
                                             flat_voxel_index, lookup_slots,
                                             make_grid_state, scatter_max,
                                             voxel_to_block_c)
@@ -41,38 +38,14 @@ from taichislam_tpu_torch.ops.kernels.seg_accum import (
     SENTINEL_BLOCK, segmented_block_reduce)
 
 
-def _inv(c: float) -> float:
-    """f32 reciprocal of a constant divisor (exactly representable)."""
-    return float(np.float32(1.0) / np.float32(c))
-
-
-def _fma(a, b, c):
-    """f32 ``a * b + c`` rounded once, as the fused multiply-add XLA's CPU
-    backend contracts these expressions into: the f64 product is exact and
-    the f64 sum is rounded to f32 (a double rounding that differs from a
-    true FMA only on exact f32 ties)."""
-    return (a.double() * b.double() + c.double()).float()
-
-
-def _sqrt(x):
-    """Correctly rounded f32 square root (taken in f64): PyTorch's
-    vectorized CPU sqrt is not, and voxel indices hang on this rounding."""
-    return torch.sqrt(x.double()).float()
-
-
-def _dot3(a0, b0, a1, b1, a2, b2):
-    """``a0*b0 + a1*b1 + a2*b2`` with the contraction XLA applies:
-    fma(a2, b2, fma(a0, b0, a1*b1))."""
-    return _fma(a2, b2, _fma(a0, b0, a1 * b1))
-
-
 def make_tsdf_state(cfg: TSDFConfig, device=None) -> GridState:
-    if cfg.texture_enabled:
-        raise NotImplementedError(
-            "textured integration is not ported yet (ROADMAP Queue A)")
+    """Channels TSDF, W_TSDF, TSDF_observed, occupy and, textured, a
+    (nb, 3, V³) color channel."""
     dt = cfg.dtype
     defs = {"TSDF": (dt, ()), "W_TSDF": (dt, ()),
             "TSDF_observed": (torch.int8, ()), "occupy": (torch.int8, ())}
+    if cfg.texture_enabled:
+        defs["color"] = (dt, (3,))
     return make_grid_state(cfg.grid, defs, device=device)
 
 
@@ -83,16 +56,17 @@ def w_x_p(cfg: TSDFConfig, d, z):
     epi = cfg.voxel_scale
     theta = cfg.voxel_scale * 4.0
     inv_z2 = 1.0 / (z * z)
-    ramp = (d + theta) * inv_z2 * _inv(theta - epi)
+    ramp = (d + theta) * inv_z2 * inv(theta - epi)
     zero = torch.zeros_like(inv_z2)
     return torch.where(d > -epi, inv_z2,
                        torch.where(d > -theta, ramp, zero))
 
 
 def depth_to_points_c(cfg: TSDFConfig, depth_mm: torch.Tensor,
-                      K_dep: torch.Tensor):
+                      texture: Optional[torch.Tensor], K_dep: torch.Tensor,
+                      K_color: Optional[torch.Tensor]):
     """Strided unprojection with the reference's gating. Returns
-    ((x, y, z_cam), z, valid), each (P,)."""
+    ((x, y, z_cam), z, color (P, 3) f32 or None, valid), vectors (P,)."""
     h, w = depth_mm.shape
     step = cfg.recast_step
     jj, ii = geometry.pixel_grid(h, w, step, device=depth_mm.device)
@@ -100,28 +74,46 @@ def depth_to_points_c(cfg: TSDFConfig, depth_mm: torch.Tensor,
     d_mm = geometry.strided_depth_f32(depth_mm, step)
     valid = (d_mm != 0) & (d_mm <= cfg.max_ray_length * 1000.0) & (
         d_mm >= cfg.min_ray_length * 1000.0)
-    dep = d_mm * _inv(1000.0)
+    dep = d_mm * inv(1000.0)
     fx, cx, fy, cy = K_dep[0], K_dep[2], K_dep[4], K_dep[5]
     px = (ii.float() - cx) * dep / fx
     py = (jj.float() - cy) * dep / fy
-    return (px, py, dep), dep, valid
+    color = None
+    if cfg.texture_enabled:
+        if cfg.color_same_proj:
+            color = texture[:(h // step) * step:step,
+                            :(w // step) * step:step, :].reshape(
+                -1, 3).float()
+        else:
+            th, tw = texture.shape[0], texture.shape[1]
+            cj, ci = geometry.color_ind_from_depth_pt(
+                ii.float(), jj.float(), K_dep, K_color, tw, th)
+            color = texture[cj.long(), ci.long(), :].float()
+    return (px, py, dep), dep, color, valid
+
+
+def pcl_to_points(cfg: TSDFConfig, xyz: torch.Tensor, rgb: torch.Tensor):
+    """Point-cloud input: f32 points, and f32 colors when textured."""
+    return xyz.float(), (rgb.float() if cfg.texture_enabled else None)
 
 
 class Bins(NamedTuple):
-    count: torch.Tensor    # (max_bins,) f32
-    sum_pos: torch.Tensor  # (max_bins, 3) f32, sensor-centric positions
-    sum_z: torch.Tensor    # (max_bins,) f32
-    valid: torch.Tensor    # (max_bins,) bool
-    dropped: torch.Tensor  # 0-d int32, bins beyond max_bins
+    count: torch.Tensor      # (max_bins,) f32
+    sum_pos: torch.Tensor    # (max_bins, 3) f32, sensor-centric positions
+    sum_z: torch.Tensor      # (max_bins,) f32
+    sum_color: torch.Tensor  # (max_bins, 3) f32 (zeros when untextured)
+    valid: torch.Tensor      # (max_bins,) bool
+    dropped: torch.Tensor    # 0-d int32, bins beyond max_bins
 
 
-def bin_points_c(cfg: TSDFConfig, px, py, pz, z, valid) -> Bins:
+def bin_points_c(cfg: TSDFConfig, px, py, pz, z, color, valid) -> Bins:
     """Deduplicate rays by sensor-local voxel: a stable sort by bin id,
     then per-bin sums through K1 (one "block" of V³ = max_bins, intra =
-    bin rank, presorted)."""
+    bin rank, presorted): count, position, depth and, textured, the three
+    color sums (8 values)."""
     r = int(math.ceil(cfg.max_ray_length / cfg.voxel_scale)) + 1
     G = 2 * r + 1
-    iv = _inv(cfg.voxel_scale)
+    iv = inv(cfg.voxel_scale)
     rha = geometry.round_half_away
     vi = rha(px * iv).to(torch.int32)
     vj = rha(py * iv).to(torch.int32)
@@ -143,13 +135,19 @@ def bin_points_c(cfg: TSDFConfig, px, py, pz, z, valid) -> Bins:
     bkeyz = torch.where(lane_ok, torch.zeros_like(rank),
                         torch.full_like(rank, SENTINEL_BLOCK))
     intra = torch.where(lane_ok, rank, torch.zeros_like(rank))
+    textured = cfg.texture_enabled and color is not None
     vals = (ok.float(), px[perm], py[perm], pz[perm], z[perm])
+    if textured:
+        col = color[perm]
+        vals = vals + (col[:, 0], col[:, 1], col[:, 2])
     _, acc, _, _ = segmented_block_reduce(bkeyz, intra, vals, B, 1,
                                           presorted=True)
     count = acc[0, 0]
+    sum_color = (torch.stack([acc[0, 5], acc[0, 6], acc[0, 7]], -1)
+                 if textured else torch.zeros((B, 3), device=acc.device))
     return Bins(count=count,
                 sum_pos=torch.stack([acc[0, 1], acc[0, 2], acc[0, 3]], -1),
-                sum_z=acc[0, 4], valid=count > 0,
+                sum_z=acc[0, 4], sum_color=sum_color, valid=count > 0,
                 dropped=torch.clamp(total_bins - B, min=0))
 
 
@@ -163,45 +161,43 @@ def _march_lattice_c(cfg: TSDFConfig, bins: Bins, T: torch.Tensor):
     p0 = bins.sum_pos[:, 0] / c
     p1 = bins.sum_pos[:, 1] / c
     p2 = bins.sum_pos[:, 2] / c
-    length = _sqrt(_dot3(p0, p0, p1, p1, p2, p2))
+    length = sqrt_rn(dot3(p0, p0, p1, p1, p2, p2))
     inv_len = 1.0 / torch.clamp(length, min=1e-12)
     d0, d1, d2 = p0 * inv_len, p1 * inv_len, p2 * inv_len
     e0, e1, e2 = p0 + T[0], p1 + T[1], p2 + T[2]
     z = bins.sum_z / c
 
     n_steps = torch.floor(torch.clamp(
-        _fma(length, torch.full_like(length, _inv(cfg.voxel_scale)),
-             torch.full_like(length, float(cfg.internal_voxels))),
+        fma(length, torch.full_like(length, inv(cfg.voxel_scale)),
+            torch.full_like(length, float(cfg.internal_voxels))),
         max=cfg.max_ray_length / cfg.voxel_scale)).to(torch.int32)
 
     step_dist = (torch.arange(S, dtype=torch.float32, device=dev) + 1.0) * \
         cfg.voxel_scale
-    x0 = _fma(d0[None, :], step_dist[:, None], T[0])
-    x1 = _fma(d1[None, :], step_dist[:, None], T[1])
-    x2 = _fma(d2[None, :], step_dist[:, None], T[2])
+    x0 = fma(d0[None, :], step_dist[:, None], T[0])
+    x1 = fma(d1[None, :], step_dist[:, None], T[1])
+    x2 = fma(d2[None, :], step_dist[:, None], T[2])
     live = (torch.arange(S, device=dev)[:, None] < n_steps[None, :]) & \
         bins.valid[None, :]
 
     v0 = e0[None, :] - x0
     v1 = e1[None, :] - x1
     v2 = e2[None, :] - x2
-    d_x_p = _sqrt(_dot3(v0, v0, v1, v1, v2, v2))
-    dot = _dot3(v0, p0[None, :], v1, p1[None, :], v2, p2[None, :])
+    d_x_p = sqrt_rn(dot3(v0, v0, v1, v1, v2, v2))
+    dot = dot3(v0, p0[None, :], v1, p1[None, :], v2, p2[None, :])
     d_signed = d_x_p * geometry.sign(dot)
     w = w_x_p(cfg, d_x_p, z[None, :])  # unsigned distance: reference quirk
     w = torch.where(live, w, torch.zeros_like(w))
     return (x0, x1, x2), live, d_signed, w, (e0, e1, e2), z
 
 
-def integrate(cfg: TSDFConfig, state: GridState, bins_pts, z, valid,
+def integrate(cfg: TSDFConfig, state: GridState, bins_pts, z, color, valid,
               T: torch.Tensor, active_submap: int):
     """Fuse one frame of (already rotated, sensor-centric) points; ``T`` is
-    the sensor position in the submap frame. In place; returns
-    (state, stats)."""
-    if cfg.texture_enabled:
-        raise NotImplementedError(
-            "textured integration is not ported yet (ROADMAP Queue A)")
-    bins = bin_points_c(cfg, bins_pts[0], bins_pts[1], bins_pts[2], z, valid)
+    the sensor position in the submap frame; ``color`` (P, 3) f32 in 0-255
+    or None. In place; returns (state, stats)."""
+    bins = bin_points_c(cfg, bins_pts[0], bins_pts[1], bins_pts[2], z,
+                        color, valid)
     (x0, x1, x2), live, d_signed, w, (e0, e1, e2), _ = \
         _march_lattice_c(cfg, bins, T)
     spec = cfg.grid
@@ -224,7 +220,8 @@ def integrate(cfg: TSDFConfig, state: GridState, bins_pts, z, valid,
     state = allocate_blocks(spec, state, blin_e, bins.valid & inb_e, s)
 
     mask_m = (live & inb_m).reshape(-1)
-    wf_raw = torch.where(mask_m, w.reshape(-1), torch.zeros((), device=dev))
+    zero = torch.zeros((), device=dev)
+    wf_raw = torch.where(mask_m, w.reshape(-1), zero)
     wdf_raw = wf_raw * d_signed.reshape(-1)
     ch = state.channels
 
@@ -234,8 +231,17 @@ def integrate(cfg: TSDFConfig, state: GridState, bins_pts, z, valid,
     bkey = torch.where(lane_ok, rel, torch.full_like(rel, SENTINEL_BLOCK))
     intra_k = torch.where(lane_ok, intra_m.reshape(-1),
                           torch.zeros_like(rel))
+    vals = (wf_raw, wdf_raw)
+    if cfg.texture_enabled:
+        # the bin's mean color in [0, 1], broadcast over its steps, as 3
+        # extra reduction values Σw·c
+        c = torch.clamp(bins.count, min=1.0)
+        bin_rgb = bins.sum_color / c[:, None] * inv(255.0)
+        vals = vals + tuple(
+            wf_raw * torch.where(mask_m, bin_rgb[None, :, a].expand(
+                live.shape).reshape(-1), zero) for a in range(3))
     touched_rel, acc, n_touched, lanes_dropped = segmented_block_reduce(
-        bkey, intra_k, (wf_raw, wdf_raw), V3, cfg.max_touched_blocks,
+        bkey, intra_k, vals, V3, cfg.max_touched_blocks,
         lane_cap=(cfg.max_march_lanes or None), vals_f16=True)
     live_lanes = lane_ok.sum(dtype=torch.int32)
     touched_dropped = torch.clamp(n_touched - cfg.max_touched_blocks, min=0)
@@ -246,7 +252,6 @@ def integrate(cfg: TSDFConfig, state: GridState, bins_pts, z, valid,
     state = allocate_blocks(spec, state, cand_blin, row_ok, s)
     slots = lookup_slots(spec, state.table, cand_blin)
 
-    zero = torch.zeros((), device=dev)
     w_sum_t = torch.where(row_ok[:, None], acc[:, 0, :], zero)
     wd_sum_t = torch.where(row_ok[:, None], acc[:, 1, :], zero)
     tgt = torch.where(row_ok, slots,
@@ -255,7 +260,7 @@ def integrate(cfg: TSDFConfig, state: GridState, bins_pts, z, valid,
     W_rows = ch["W_TSDF"][tgt].float()
     touched_v = w_sum_t > 0
     new_D = torch.where(touched_v,
-                        _fma(D_rows, W_rows, wd_sum_t) / (W_rows + w_sum_t),
+                        fma(D_rows, W_rows, wd_sum_t) / (W_rows + w_sum_t),
                         D_rows)
     new_W = torch.where(touched_v,
                         torch.clamp(W_rows + w_sum_t, max=cfg.w_max), W_rows)
@@ -264,6 +269,14 @@ def integrate(cfg: TSDFConfig, state: GridState, bins_pts, z, valid,
     obs_rows = ch["TSDF_observed"][tgt]
     ch["TSDF_observed"][tgt] = torch.maximum(obs_rows,
                                              touched_v.to(torch.int8))
+    if cfg.texture_enabled:
+        # weighted mean of the frame's colors per touched voxel
+        w_den = torch.clamp(w_sum_t, min=1e-20)
+        C_rows = ch["color"][tgt].float()                 # (T, 3, V3)
+        wc = torch.where(row_ok[:, None, None], acc[:, 2:5, :], zero)
+        new_C = torch.where(touched_v[:, None, :], wc / w_den[:, None, :],
+                            C_rows)
+        ch["color"][tgt] = new_C.to(cfg.dtype)
     touched_blocks = torch.zeros((spec.max_blocks + 1,), dtype=torch.bool,
                                  device=dev)
     touched_blocks[tgt] = touched_v.any(dim=1)
@@ -292,12 +305,67 @@ def integrate(cfg: TSDFConfig, state: GridState, bins_pts, z, valid,
     return state, stats
 
 
-def integrate_depth(cfg: TSDFConfig, state: GridState, depth_mm, R, T,
-                    K_dep, active_submap: int):
-    """One depth frame (uint16 mm, or any integer tensor) fused at sensor
-    pose (R, T) in the submap frame; ``R``, ``T``, ``K_dep`` are f32
-    tensors on the state's device. In place; returns (state, stats)."""
-    (px, py, pz), dep, valid = depth_to_points_c(cfg, depth_mm, K_dep)
-    m0, m1, m2 = (_dot3(R[a, 0], px, R[a, 1], py, R[a, 2], pz)
-                  for a in range(3))
-    return integrate(cfg, state, (m0, m1, m2), dep, valid, T, active_submap)
+def _rotate(R, px, py, pz):
+    return tuple(dot3(R[a, 0], px, R[a, 1], py, R[a, 2], pz)
+                 for a in range(3))
+
+
+def integrate_depth(cfg: TSDFConfig, state: GridState, depth_mm, texture,
+                    R, T, K_dep, K_color, active_submap: int):
+    """One depth frame (uint16 mm, or any integer tensor) with its (h, w, 3)
+    texture (ignored when untextured) fused at sensor pose (R, T) in the
+    submap frame; ``R``, ``T``, ``K_dep``, ``K_color`` are f32 tensors on the
+    state's device. In place; returns (state, stats)."""
+    (px, py, pz), dep, color, valid = depth_to_points_c(
+        cfg, depth_mm, texture, K_dep, K_color)
+    return integrate(cfg, state, _rotate(R, px, py, pz), dep, color, valid,
+                     T, active_submap)
+
+
+def integrate_pcl(cfg: TSDFConfig, state: GridState, xyz, rgb, R, T,
+                  active_submap: int):
+    """Point-cloud frame: points are rotated (not translated), gated on
+    ``|R @ p| < max_ray_length``, and z := |R @ p|. In place; returns
+    (state, stats)."""
+    pts, color = pcl_to_points(cfg, xyz, rgb)
+    m = _rotate(R, pts[:, 0], pts[:, 1], pts[:, 2])
+    z = sqrt_rn(dot3(m[0], m[0], m[1], m[1], m[2], m[2]))
+    return integrate(cfg, state, m, z, color, z < cfg.max_ray_length, T,
+                     active_submap)
+
+
+def init_sphere(cfg: TSDFConfig, state: GridState, active_submap: int = 0,
+                voxels: int = 30, radius: float = None) -> GridState:
+    """Analytic sphere fixture: ``TSDF = |p| - radius`` (3 voxels by
+    default) over a ``voxels³`` cube centred at the origin, observed, with
+    jet colors by height when textured. In place; returns the state."""
+    if radius is None:
+        radius = cfg.voxel_scale * 3
+    dev = state.table.device
+    half = voxels // 2
+    r = torch.arange(-half, half, dtype=torch.int32, device=dev)
+    ii, jj, kk = torch.meshgrid(r, r, r, indexing="ij")
+    ijk = torch.stack([ii, jj, kk], -1).reshape(-1, 3)
+    p = geometry.ijk_to_xyz(ijk, cfg.voxel_scale)
+    tsdf = sqrt_rn(dot3(p[:, 0], p[:, 0], p[:, 1], p[:, 1], p[:, 2],
+                        p[:, 2])) - radius
+
+    spec = cfg.grid
+    s = int(active_submap)
+    blin, intra, inb = voxel_to_block_c(spec, s, ijk[:, 0], ijk[:, 1],
+                                        ijk[:, 2])
+    state = allocate_blocks(spec, state, blin, inb, s)
+    slots = lookup_slots(spec, state.table, blin)
+    flat = flat_voxel_index(spec, slots, intra).long()
+    ch = state.channels
+    ch["TSDF"].view(-1)[flat] = tsdf.to(cfg.dtype)
+    ch["TSDF_observed"].view(-1)[flat] = 1
+    if cfg.texture_enabled:
+        col = color_from_colormap(p[:, 2], -radius, radius, reciprocal=False)
+        colf = ch["color"].view(-1)
+        for a in range(3):
+            colf[comp_flat_index(spec, slots, intra, a).long()] = \
+                col[:, a].to(cfg.dtype)
+    for v in ch.values():
+        v[-1] = 0
+    return state

@@ -75,6 +75,28 @@ def test_presorted_single_block():
     _compare(bkey, intra, vals, 1, presorted=True)
 
 
+@pytest.mark.parametrize("site", ["march5", "bins8"])
+def test_textured_sites_match_pallas(site):
+    """The textured call sites: the march at 5 values (Σw, Σw·d, 3 Σw·c;
+    f16-rounded pairs, the odd fifth value f32) and the bins at 8 values
+    (count, px, py, pz, depth, r, g, b; one presorted block)."""
+    rng = np.random.default_rng(6)
+    if site == "march5":
+        bkey, intra, vals = _lanes(6, 4000, 30, n_vals=5)
+        got = _compare(bkey, intra, vals, 32, max_bkey=64, vals_f16=True)
+        assert int(got[2]) == 30
+        return
+    rank = np.sort(rng.integers(0, 600, 3000)).astype(np.int32)
+    ok = rank < V3
+    bkey = np.where(ok, 0, jk.SENTINEL_BLOCK).astype(np.int32)
+    intra = np.where(ok, rank, 0).astype(np.int32)
+    vals = [np.ones(3000, np.float32)] + [
+        rng.standard_normal(3000).astype(np.float32) for _ in range(4)] + [
+        rng.uniform(0, 255, 3000).astype(np.float32) for _ in range(3)]
+    got = _compare(bkey, intra, vals, 1, presorted=True)
+    assert got[1].shape == (1, 8, V3)
+
+
 def test_lane_cap_counts_dropped_lanes():
     # distinct (block, intra) keys and the packed-key sort (the march call
     # site's): which lanes of the boundary block fall past the cap must not

@@ -7,8 +7,6 @@ f32 values in different orders) and 4e-3 at float16 (one f16 ulp near
 1.5 m on top of that); W to rtol 2e-3 and atol 1e-3.
 """
 
-import dataclasses
-
 import numpy as np
 import pytest
 
@@ -63,7 +61,8 @@ def _run_port(cfg, frames):
     for depth, R, T in frames:
         st, s = tt.integrate_depth(cfg, st,
                                    torch.from_numpy(depth.astype(np.int32)),
-                                   torch.from_numpy(R), torch.from_numpy(T),
+                                   None, torch.from_numpy(R),
+                                   torch.from_numpy(T), torch.from_numpy(K),
                                    torch.from_numpy(K), 1)
         stats.append({k: v.numpy() for k, v in s.items()})
     return bridge.grid_state_to_numpy(st), stats
@@ -127,13 +126,14 @@ def test_unprojection_bins_and_weights_match_jax():
     (jx, jy, jz), jdep, _, jvalid = jax.jit(
         jt.depth_to_points_c, static_argnums=0)(
         cfg_j, jnp.asarray(depth), None, jnp.asarray(K), jnp.asarray(K))
-    (tx, ty, tz), tdep, tvalid = tt.depth_to_points_c(
-        cfg_t, torch.from_numpy(depth.astype(np.int32)), torch.from_numpy(K))
+    (tx, ty, tz), tdep, _, tvalid = tt.depth_to_points_c(
+        cfg_t, torch.from_numpy(depth.astype(np.int32)), None,
+        torch.from_numpy(K), torch.from_numpy(K))
     for a, b in ((jx, tx), (jy, ty), (jz, tz), (jvalid, tvalid)):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
     jb = jax.jit(jt.bin_points_c, static_argnums=0)(
         cfg_j, jx, jy, jz, jdep, None, jvalid)
-    tb = tt.bin_points_c(cfg_t, tx, ty, tz, tdep, tvalid)
+    tb = tt.bin_points_c(cfg_t, tx, ty, tz, tdep, None, tvalid)
     np.testing.assert_array_equal(np.asarray(jb.count), tb.count.numpy())
     np.testing.assert_allclose(np.asarray(jb.sum_pos), tb.sum_pos.numpy(),
                                atol=1e-4)
@@ -147,8 +147,3 @@ def test_unprojection_bins_and_weights_match_jax():
             cfg_j, jnp.asarray(d), jnp.asarray(z))),
         tt.w_x_p(cfg_t, torch.from_numpy(d), torch.from_numpy(z)).numpy())
 
-
-def test_textured_config_is_refused():
-    with pytest.raises(NotImplementedError):
-        tt.make_tsdf_state(dataclasses.replace(TConfig(**BASE),
-                                               texture_enabled=True))

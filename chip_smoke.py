@@ -24,7 +24,24 @@ Phases:
   7. the first frames of that path on the card and through the plain path
      on the CPU, on a 10 x 10 m map: tables, observed and fixed flags, ESDF
      modes and sweeps exact; TSDF, color and ESDF within 4e-3; triangle and
-     export counts exact, vertices within 1e-4 m.
+     export counts exact, vertices within 1e-4 m;
+  8. the launch files' path (enable_submap, mapping_type=tsdf), built as
+     taichislam_tpu/node/core.py:152-169 builds it: SubmapMapping(DenseTSDF)
+     with the node's option builders (100 x 10 m, 5 cm, V = 16, textured),
+     keyframe_step 10, the D435 cameras and the MarchingCubeMesher on the
+     global map; 40 textured orbit frames, so full refuses at frames 10, 20
+     and 30, each logged with its ms, lanes and block cap. No capacity may
+     drop, K1 must launch at the fusion site; then drone B ingests A's
+     payloads, A re-poses by PGO and flushes, and the same frames with
+     incremental_fuse + async_finalize must give the same global map. K1
+     is also held against its twin on the lanes of a full refuse of that
+     collection (reported as phase 2's fusion shape), and a torch.profiler
+     window gives kernels per frame and the idle share;
+  9. the octo path: SubmapMapping(Octomap) at the node's get_octo_opts,
+     40 frames, LOD exports at levels 0 and 1 non-empty;
+ 10. both submap types on a 10 x 10 m map, 9 frames, keyframe_step 4, on
+     the card and on the CPU: global tables, observed flags, occupancy and
+     sent-submap indices exact, TSDF / W / color within 4e-3.
 
 Exits non-zero without a result when no CUDA device is present. The last
 line is {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -394,6 +411,17 @@ class Timer:
                                                 self.marks[1:])]
 
 
+def hold_bins(m, floor):
+    """Hold a DenseTSDF's adaptive ray-bin bucket at or above ``floor``."""
+    follow = m._update_bin_bucket
+
+    def held(stats):
+        follow(stats)
+        m._bin_bucket = max(m._bin_bucket, floor)
+    m._update_bin_bucket = held
+    m._bin_bucket = floor
+
+
 def node_run(dev, frames, texs, map_kw, n, bin_floor=None):
     """Drive the node's per-frame loop for ``n`` frames. The model adapts
     its ray-bin bucket to each frame's load, so a frame whose load rises
@@ -408,13 +436,7 @@ def node_run(dev, frames, texs, map_kw, n, bin_floor=None):
     m.set_color_camera_intrinsic(KCOLOR)
     mesher = MarchingCubeMesher(m, 1_000_000, tsdf_surface_thres=0.25)
     if bin_floor is not None:
-        follow = m._update_bin_bucket
-
-        def held(stats):
-            follow(stats)
-            m._bin_bucket = max(m._bin_bucket, bin_floor)
-        m._update_bin_bucket = held
-        m._bin_bucket = bin_floor
+        hold_bins(m, bin_floor)
     recs, stage_ms = [], []
     for f in range(n):
         t = Timer(dev)
@@ -563,6 +585,347 @@ def node_cpu_phase(dev, frames, texs):
         f"{[r['tris'] for r in crec]}")
 
 
+# ---------------------------------------------------------------------------
+# phases 8-10: the launch files' submap path
+# ---------------------------------------------------------------------------
+
+SUB_FRAMES = 40
+KEYFRAME_STEP = 10
+# node/core.py:107-150 at the node's defaults: get_general_mapping_opts,
+# get_sdf_opts, get_octo_opts; get_submap_opts adds the submap display cap
+GENERAL = dict(texture_enabled=True, max_disp_particles=1024 * 1024,
+               map_scale=[100, 10], voxel_scale=0.05, max_ray_length=5.1,
+               min_ray_length=0.3, disp_ceiling=1.8, disp_floor=-0.3,
+               color_same_proj=False)
+SDF_OPTS = dict(GENERAL, num_voxel_per_blk_axis=16)
+OCTO_OPTS = dict(GENERAL, K=2, min_occupy_thres=2)
+EXT = (np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
+
+
+def submap_run(dev, frames, texs, n, octo=False, bin_floor=None,
+               keyframe_step=None, map_scale=None, mesh=True, **sm_kw):
+    """Drive SubmapMapping as node/core.py:152-169 builds it for ``n``
+    textured frames, all keyframes: per frame recast_depth_to_map_by_frame,
+    generate_mesh(1) on the global map (DenseTSDF) and the global + active
+    local export. Returns (mapping, mesher, sent payloads, per-frame
+    records with stage ms, drops, and each boundary's fusion)."""
+    import torch
+    from taichislam_tpu_torch.models.dense_tsdf import DenseTSDF
+    from taichislam_tpu_torch.models.mesher import MarchingCubeMesher
+    from taichislam_tpu_torch.models.octomap import Octomap
+    from taichislam_tpu_torch.models.submap_mapping import SubmapMapping
+    depth, Rs, Ts = frames
+    keyframe_step = keyframe_step or KEYFRAME_STEP
+    opts = OCTO_OPTS if octo else SDF_OPTS
+    if map_scale is not None:
+        opts = dict(opts, map_scale=map_scale)
+    sm = SubmapMapping(Octomap if octo else DenseTSDF, global_opts=opts,
+                       sub_opts=dict(opts, max_disp_particles=100000),
+                       keyframe_step=keyframe_step, device=dev, **sm_kw)
+    sm.set_color_camera_intrinsic(KCOLOR)
+    sm.set_dep_camera_intrinsic(KDEPTH)
+    sent = []
+    sm.map_send_handle = sent.append
+    col, gm = sm.submap_collection, sm.global_map
+    mesher = None if octo or not mesh else MarchingCubeMesher(
+        gm, 1_000_000, tsdf_surface_thres=0.25)
+    if bin_floor is not None:
+        hold_bins(col, bin_floor)
+    fuses = []
+
+    def timed(fn):
+        def run(*a, **kw):
+            t = Timer(dev)
+            t.mark()
+            fn(*a, **kw)
+            t.mark()
+            fuses.append(dict(ms=t.ms()[0], **getattr(gm, "last_fuse", {})))
+        return run
+    gm.fuse_submaps = timed(gm.fuse_submaps)
+    gm.fuse_submaps_incremental = timed(gm.fuse_submaps_incremental)
+    recs = []
+    for f in range(n):
+        boundary = f > 0 and f % keyframe_step == 0
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t = Timer(dev)
+        t.mark()
+        sm.recast_depth_to_map_by_frame(f, True, (Rs[f], Ts[f]), EXT,
+                                        depth[f], texs[f])
+        t.mark()
+        if mesher is not None:
+            mesher.generate_mesh(1)
+        t.mark()
+        if octo:
+            sm.cvt_occupy_to_voxels(0)
+        else:
+            sm.cvt_TSDF_surface_to_voxels()
+        t.mark()
+        rec = dict(ms=t.ms(), boundary=boundary,
+                   peak_mib=(torch.cuda.max_memory_allocated() / 2**20
+                             if dev.type == "cuda" else 0.0))
+        if octo:
+            rec.update(drops=0, export=sm.num_export_particles)
+        else:
+            st = col.last_stats
+            drops = {k: int(st[k]) for k in DROP_KEYS if int(st[k])}
+            rec.update(drops=sum(drops.values()), dropped=drops,
+                       bucket=col._bin_bucket, export=sm.num_TSDF_particles,
+                       tris=mesher.num_facelets if mesher else 0)
+            if boundary:
+                gst = gm.last_stats
+                rec["fuse"] = dict(fuses[-1], **{
+                    k: int(gst[k]) for k in ("fuse_sources", "fuse_dropped",
+                                             "fuse_tiles_dropped")})
+        recs.append(rec)
+    return sm, mesher, sent, recs
+
+
+def sorted_global(m):
+    """The global map's observed voxels (indices, TSDF, W) sorted by
+    index, on the host."""
+    idx, tsdf, w, _, _ = m.to_numpy()
+    order = np.lexsort(idx.T)
+    return idx[order], tsdf[order], w[order]
+
+
+def stage_log(tag, recs, smi):
+    ms = np.array([r["ms"] for r in recs])
+    inner = ~np.array([r["boundary"] for r in recs])
+    per = ms[inner].mean(0)
+    log(f"[{tag}] ms/frame off the boundaries: recast {per[0]:.3f} mesh "
+        f"{per[1]:.3f} export {per[2]:.3f} total {per.sum():.3f} ({smi})")
+    for f, r in enumerate(recs):
+        if r["boundary"]:
+            log(f"[{tag}] boundary frame {f}: recast {r['ms'][0]:.3f} ms "
+                f"(mesh {r['ms'][1]:.3f}, export {r['ms'][2]:.3f}), fusion "
+                f"{r.get('fuse')}, peak device memory {r['peak_mib']:.1f} "
+                f"MiB")
+    log(f"[{tag}] peak device memory off the boundaries "
+        f"{max(r['peak_mib'] for r in recs if not r['boundary']):.1f} MiB")
+
+
+def submap_phase(dev, smi, frames, texs, launches, results):
+    """Phase 8: the launch files' path. A first untimed pass finds the
+    largest ray-bin bucket the collection needs; the measured pass holds
+    it, then drone B ingests A's payloads, A re-poses by PGO and flushes;
+    the same frames again with incremental_fuse and async_finalize must
+    give the same global map."""
+    import torch
+    from taichislam_tpu_torch.models.dense_tsdf import DenseTSDF
+    from taichislam_tpu_torch.models.submap_mapping import SubmapMapping
+    from taichislam_tpu_torch.ops.kernels import esdf_sweep as ks
+    from taichislam_tpu_torch.ops.kernels import seg_accum as k1
+    sm0, _, _, recs0 = submap_run(dev, frames, texs, SUB_FRAMES)
+    floor = max(r["bucket"] for r in recs0)
+    log(f"[phase8] sizing pass: drops/frame "
+        f"{[r['dropped'] for r in recs0 if r['drops']]}, buckets "
+        f"{sorted(set(r['bucket'] for r in recs0))}, collection blocks "
+        f"{int(sm0.submap_collection.state.num_blocks)}")
+    del sm0
+    counters = (k1.segmented_block_reduce, ks.esdf_sweep, ks.esdf_sweep_loop)
+    for c in counters:
+        c.launches = 0
+    k1.segmented_block_reduce.site_launches.clear()
+    torch.cuda.synchronize()
+    sm, mesher, sent, recs = submap_run(dev, frames, texs, SUB_FRAMES,
+                                        bin_floor=floor)
+    torch.cuda.synchronize()
+    got = dict(zip(("K1", "K2", "K3"), (c.launches for c in counters)))
+    sites = dict(k1.segmented_block_reduce.site_launches)
+    for k, v in got.items():
+        launches[k] += v
+    log(f"[phase8] launches during the submap path: {got}, K1 by site "
+        f"{sites}")
+    require(sites.get("fusion", 0) > 0, "K1 not launched at the fusion site")
+    results["K1"]["fusion_launches"] = sites["fusion"]
+    require(max(r["drops"] for r in recs) == 0,
+            f"submap path: collection drops {[r['dropped'] for r in recs]}")
+    fuses = [r["fuse"] for r in recs if r["boundary"]]
+    n_bound = (SUB_FRAMES - 1) // KEYFRAME_STEP
+    require(len(fuses) == n_bound, f"submap path: {len(fuses)} refuses")
+    for fz in fuses:
+        require(fz["fuse_dropped"] == 0 and fz["fuse_tiles_dropped"] == 0,
+                f"submap path: fusion dropped {fz}")
+    require(mesher.num_facelets > 0, "submap path: no triangles")
+    require(min(r["export"] for r in recs) > 0, "submap path: empty export")
+    col = sm.submap_collection
+    log(f"[phase8] collection blocks {int(col.state.num_blocks)}, global "
+        f"blocks {int(sm.global_map.state.num_blocks)}, sends {len(sent)}, "
+        f"triangles {mesher.num_facelets}, export {recs[-1]['export']}")
+    stage_log("phase8", recs, smi)
+    full = sorted_global(sm.global_map)
+
+    # drone B ingests A's payloads; A re-poses by PGO and flushes
+    b = SubmapMapping(DenseTSDF, global_opts=SDF_OPTS,
+                      sub_opts=dict(SDF_OPTS, max_disp_particles=100000),
+                      keyframe_step=KEYFRAME_STEP, device=dev)
+    t = Timer(dev)
+    t.mark()
+    for buf in sent:
+        b.input_remote_submap(buf)
+    t.mark()
+    shift = {fid: (np.asarray(sm.pgo_poses[fid][0]),
+                   np.asarray(sm.pgo_poses[fid][1]) + np.float32(0.05))
+             for fid in sm.submaps}
+    sm.set_frame_poses(shift)
+    t.mark()
+    sm.local_to_global()
+    t.mark()
+    sm.flush()
+    b.input_remote_submap(sent[-1])
+    t.mark()
+    ms = t.ms()
+    n_b = b.submap_collection.remote_submap_num
+    require(n_b == len(sent) == n_bound + 1,
+            f"drone B holds {n_b} of {len(sent)}")
+    require(b.global_map.count_active() > 0, "drone B: empty global map")
+    fz = sm.global_map.last_fuse
+    require(int(sm.global_map.last_stats["fuse_dropped"]) == 0 and
+            int(sm.global_map.last_stats["fuse_tiles_dropped"]) == 0,
+            "PGO refuse dropped")
+    log(f"[phase8] drone B ingested {n_b} submaps in {ms[0]:.3f} ms, global "
+        f"voxels {b.global_map.count_active()}; PGO refuse {ms[2]:.3f} ms "
+        f"(bcap {fz['bcap']}, lanes {fz['lanes']}); flush + ingest "
+        f"{ms[3]:.3f} ms")
+    del b
+
+    sm_a, _, sent_a, recs_a = submap_run(
+        dev, frames, texs, SUB_FRAMES, bin_floor=floor,
+        incremental_fuse=True, async_finalize=True)
+    sm_a.sync()
+    inc = sorted_global(sm_a.global_map)
+    require(np.array_equal(inc[0], full[0]), "async vs full refuse: keys")
+    errs = [float(np.abs(a.astype(np.float32) - b_.astype(np.float32)).max())
+            for a, b_ in zip(inc[1:], full[1:])]
+    require(max(errs) <= 1e-4, f"async vs full refuse: TSDF/W {errs}")
+    require(len(sent_a) == n_bound, f"async sends {len(sent_a)}")
+    log(f"[phase8] incremental + async finalize: {len(inc[0])} voxels, "
+        f"same keys, TSDF/W max abs {errs}")
+    stage_log("phase8 async", recs_a, smi)
+    del sm_a
+    check_seg_accum_fusion(dev, sm, results)
+    submap_profile(dev, frames, texs, floor)
+
+
+def check_seg_accum_fusion(dev, sm, results):
+    """Phase 2 at the fusion shape: K1 on the lanes of a full refuse of
+    phase 8's collection (6 values, not presorted, no lane cap) against
+    its twin."""
+    import torch
+    from taichislam_tpu_torch.ops import fusion as fusion_ops
+    from taichislam_tpu_torch.ops.kernels import seg_accum as k1
+    col, gm = sm.submap_collection, sm.global_map
+    bcap = gm._collection_bcap(col)
+    glob_cfg = dataclasses.replace(gm.cfg,
+                                   max_touched_blocks=gm._fuse_touched_bucket)
+    c = fusion_ops.splat_contributions(col.cfg, glob_cfg, bcap, col.state,
+                                       *gm._bases())
+    bkey, intra, vals = fusion_ops.reduce_lanes(glob_cfg, c)
+    del c
+    args = (bkey, intra, vals, glob_cfg.grid.voxels_per_block,
+            glob_cfg.max_touched_blocks)
+    got = k1.segmented_block_reduce(*args, site="check")
+    want = k1.segmented_block_reduce_ref(*args)
+    torch.cuda.synchronize()
+    require(torch.equal(got[0], want[0]), "K1 fusion: touched keys")
+    require(int(got[2]) == int(want[2]), "K1 fusion: n_touched")
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-5)
+    e = float((got[1] - want[1]).abs().max())
+    ms = cuda_ms(lambda: k1.segmented_block_reduce(*args, site="check"), 5)
+    pms = cuda_ms(lambda: k1.segmented_block_reduce_ref(*args), 3)
+    log(f"[phase2] K1 fusion: {bkey.numel()} lanes (bcap {bcap}), 6 values, "
+        f"n_touched {int(got[2])} max_abs_err {e} ms {ms:.4f} plain_ms "
+        f"{pms:.4f}")
+    results["K1"].update(fusion_max_abs_err=e, fusion_ms=ms,
+                         fusion_plain_ms=pms, fusion_lanes=bkey.numel())
+    results["K1"]["max_abs_err"] = max(results["K1"]["max_abs_err"], e)
+
+
+def submap_profile(dev, frames, texs, bin_floor, n=12):
+    """torch.profiler over the first ``n`` frames of the submap path (the
+    boundary at frame 10 and its full refuse included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        submap_run(dev, frames, texs, n, bin_floor=bin_floor)
+        torch.cuda.synchronize()
+    wall = 1000 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in kernels) / 1000.0
+    log(f"[phase8] profiled {n} frames: {len(kernels) / n:.0f} CUDA kernels "
+        f"per frame, device busy {busy / n:.3f} of {wall / n:.3f} ms per "
+        f"frame under the profiler (idle share {1 - busy / wall:.3f})")
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "submap_profile.txt").write_text(prof.key_averages().table(
+        sort_by="cuda_time_total", row_limit=40))
+
+
+def octo_phase(dev, smi, frames, texs):
+    """Phase 9: the octo path, SubmapMapping(Octomap) at the node's
+    get_octo_opts; the LOD exports at levels 0 and 1."""
+    sm, _, sent, recs = submap_run(dev, frames, texs, SUB_FRAMES, octo=True)
+    require(len(sent) == (SUB_FRAMES - 1) // KEYFRAME_STEP,
+            f"octo sends {len(sent)}")
+    stage_log("phase9", recs, smi)
+    for level in (0, 1):
+        t = Timer(dev)
+        t.mark()
+        sm.cvt_occupy_to_voxels(level)
+        t.mark()
+        n = sm.num_export_particles
+        require(n > 0, f"octo export level {level} empty")
+        log(f"[phase9] cvt_occupy_to_voxels({level}): {n} particles in "
+            f"{t.ms()[0]:.3f} ms ({smi})")
+    log(f"[phase9] collection blocks "
+        f"{int(sm.submap_collection.state.num_blocks)}, global blocks "
+        f"{int(sm.global_map.state.num_blocks)}")
+
+
+def submap_cpu_phase(dev, frames, texs, n=9):
+    """Phase 10: both submap types on a 10 x 10 m map, on the card and
+    through the plain path on the CPU."""
+    import zlib
+
+    import torch
+    from taichislam_tpu_torch.models.submap_mapping import \
+        _decode_submap_npz
+    cpu = torch.device("cpu")
+    for octo in (False, True):
+        runs = [submap_run(d, frames, texs, n, octo=octo, keyframe_step=4,
+                           map_scale=[10, 10], mesh=False)
+                for d in (dev, cpu)]
+        (g, _, g_sent, g_recs), (c, _, c_sent, c_recs) = runs
+        gs, cs = g.global_map.state, c.global_map.state
+        for name in ("table", "block_coords", "num_blocks"):
+            require(torch.equal(getattr(gs, name).cpu(), getattr(cs, name)),
+                    f"card vs CPU ({'octo' if octo else 'tsdf'}): {name}")
+        exact = ("occupy",) if octo else ("TSDF_observed", "occupy")
+        for name in exact:
+            require(torch.equal(gs.channels[name].cpu(), cs.channels[name]),
+                    f"card vs CPU: {name}")
+        errs = {name: float((gs.channels[name].cpu().float() -
+                             cs.channels[name].float()).abs().max())
+                for name in gs.channels if name not in exact}
+        require(max(errs.values()) <= 4e-3, f"card vs CPU: {errs}")
+        require(len(g_sent) == len(c_sent) == 2, "card vs CPU: sends")
+        for a, b in zip(g_sent, c_sent):
+            da, db = (_decode_submap_npz(zlib.decompress(x)) for x in (a, b))
+            require(da["frame_id"] == db["frame_id"], "sent frame ids")
+            if not octo:
+                require(np.array_equal(da["indices"], db["indices"]),
+                        "sent submap indices")
+        require([r["export"] for r in g_recs] == [r["export"] for r in c_recs],
+                "card vs CPU: export counts")
+        log(f"[phase10] {'octo' if octo else 'tsdf'} card vs CPU over {n} "
+            f"frames: tables, flags, occupancy and sent indices exact; max "
+            f"abs {errs}; global blocks {int(gs.num_blocks)}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -695,6 +1058,17 @@ def main():
     texs = textures(N_FRAMES)
     node_phase(dev, smi, (depth_n, Rs_n, Ts_n), texs, launches)
     node_cpu_phase(dev, (depth_n, Rs_n, Ts_n), texs)
+
+    # ---- phases 8-10 -----------------------------------------------------
+    t0 = time.perf_counter()
+    sub_frames = orbit_sequence(n_frames=SUB_FRAMES, K=KDEPTH,
+                                noise_mm=3.0)[:3]
+    sub_texs = textures(SUB_FRAMES)
+    log(f"[phase8] rendered {SUB_FRAMES} frames in "
+        f"{time.perf_counter() - t0:.1f} s")
+    submap_phase(dev, smi, sub_frames, sub_texs, launches, results)
+    octo_phase(dev, smi, sub_frames, sub_texs)
+    submap_cpu_phase(dev, sub_frames, sub_texs)
 
     src = "taichislam_tpu_torch/csrc/"
     table = [("seg_accum (K1)", "K1", src + "seg_accum.cu",

@@ -8,6 +8,7 @@ float32 channels.
 
 from __future__ import annotations
 
+import copy
 from typing import Dict
 
 import numpy as np
@@ -48,6 +49,44 @@ def grid_state_to_numpy(state: GridState) -> GridState:
         block_active=f(state.block_active), num_blocks=f(state.num_blocks),
         alloc_overflow=f(state.alloc_overflow),
         channels={k: f(v) for k, v in state.channels.items()})
+
+
+OCTOMAP_CHANNELS = {"occupy": np.float32, "color": np.float32}
+
+
+def octomap_state_from_numpy(state, device=None) -> GridState:
+    """An Octomap grid (f32 hit counts ``occupy`` and, textured, f32
+    ``color`` (nb, 3, V³)) as this package's GridState on ``device``."""
+    for k, v in state.channels.items():
+        if OCTOMAP_CHANNELS.get(k) != np.asarray(v).dtype:
+            raise TypeError(f"not an octomap channel: {k} "
+                            f"{np.asarray(v).dtype}")
+    return grid_state_from_numpy(state, device)
+
+
+_MAP_REGISTRY = ("submaps_base_R_np", "submaps_base_T_np", "active_submap_id",
+                 "remote_submap_num")
+_MAPPING_REGISTRY = ("submaps", "pgo_poses", "ego_motion_poses",
+                     "last_frame_id", "active_submap_frame_id", "frame_count",
+                     "first_init", "_fusion_dirty", "_active_in_global")
+
+
+def copy_submap_registry(src, dst):
+    """Copy a SubmapMapping's host registry from ``src`` (either package's)
+    into ``dst`` (this package's): base poses, active and remote submap
+    counts of the collection and the global map, the frame -> submap map,
+    PGO and ego-motion poses, and the ingestion counters; and the two maps'
+    grids, onto ``dst``'s devices."""
+    for name in ("submap_collection", "global_map"):
+        s, d = getattr(src, name), getattr(dst, name)
+        for k in _MAP_REGISTRY:
+            v = getattr(s, k)
+            setattr(d, k, np.array(v, copy=True) if isinstance(
+                v, np.ndarray) else v)
+        d.state = grid_state_from_numpy(s.state, d.device)
+    for k in _MAPPING_REGISTRY:
+        setattr(dst, k, copy.deepcopy(getattr(src, k)))
+    return dst
 
 
 def esdf_state_from_numpy(arrays: Dict[str, np.ndarray],

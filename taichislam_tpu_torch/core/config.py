@@ -140,3 +140,54 @@ class TSDFConfig:
     @property
     def dtype(self) -> torch.dtype:
         return getattr(torch, self.storage_dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class OctomapConfig:
+    """Octomap configuration (same fields as the JAX package). The grid is
+    sized like the reference's K**R tree, ``N = K**ceil(log_K(map/voxel))``,
+    and the voxel scale is re-derived as ``map_size / N``."""
+
+    map_scale: Tuple[float, float] = (10.0, 10.0)
+    voxel_scale: float = 0.05
+    min_occupy_thres: float = 3.0
+    texture_enabled: bool = False
+    min_ray_length: float = 0.3
+    max_ray_length: float = 3.0
+    max_disp_particles: int = 1000000
+    K: int = 2
+    max_submap_num: int = 1024
+    disp_ceiling: float = 10.0
+    disp_floor: float = -10.0
+    is_global_map: bool = False
+    recast_step: int = 2
+    color_same_proj: bool = True
+
+    max_blocks: int = 8192
+    num_voxel_per_blk_axis: int = 16
+
+    def __post_init__(self):
+        lk = math.log2(self.K)
+        Rxy = math.ceil(math.log2(self.map_scale[0] / self.voxel_scale) / lk)
+        Rz = math.ceil(math.log2(self.map_scale[1] / self.voxel_scale) / lk)
+        object.__setattr__(self, "Rxy", Rxy)
+        object.__setattr__(self, "Rz", Rz)
+        object.__setattr__(self, "N", self.K ** Rxy)
+        object.__setattr__(self, "Nz", self.K ** Rz)
+        object.__setattr__(self, "voxel_scale", self.map_scale[0] / self.N)
+
+    @property
+    def grid(self) -> GridSpec:
+        # N is a power of K: halve the block size until blocks divide it
+        V = self.num_voxel_per_blk_axis
+        while self.N % V != 0 or (self.Nz % V != 0 and self.Nz > V):
+            V //= 2
+        V = max(V, 1)
+        return GridSpec(
+            voxel_scale=self.voxel_scale,
+            map_size_xy=self.voxel_scale * self.N,
+            map_size_z=self.voxel_scale * max(self.Nz, V),
+            num_voxel_per_blk_axis=V,
+            num_submaps=1 if self.is_global_map else self.max_submap_num,
+            max_blocks=self.max_blocks,
+        )

@@ -72,6 +72,15 @@ def color_ind_from_depth_pt(i, j, K_dep, K_color, w: int, h: int):
     return torch.where(oob, zero, color_j), torch.where(oob, zero, color_i)
 
 
+def texture_at(texture: torch.Tensor, row, col) -> torch.Tensor:
+    """``texture[row, col, :]`` as f32 with the indices clamped into the
+    image, as JAX's gather clamps them: the reference's bounds test (rows
+    against ``w``) lets rows past the image through."""
+    h, w = texture.shape[0], texture.shape[1]
+    return texture[row.long().clamp(0, h - 1),
+                   col.long().clamp(0, w - 1), :].float()
+
+
 def convert_by_base(base_R, base_T, R, T):
     """Express world pose (R, T) in the frame of base pose (host numpy)."""
     base_R = np.asarray(base_R)

@@ -8,6 +8,7 @@ are stored in the active submap's frame.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from taichislam_tpu_torch.core import geometry
 from taichislam_tpu_torch.core.colormap import jet_lut_np
@@ -25,6 +26,10 @@ class BaseMap:
         self.K_cam_dep = None
         self.K_cam_color = None
         self.colormap = jet_lut_np()
+
+    def _tensor(self, a, dtype=None):
+        """``a`` as a tensor on the map's ``device``."""
+        return torch.as_tensor(np.asarray(a, dtype=dtype), device=self.device)
 
     # -- camera ------------------------------------------------------------
     def set_dep_camera_intrinsic(self, K):

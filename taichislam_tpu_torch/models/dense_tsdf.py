@@ -5,8 +5,11 @@ constructor, adaptive ray-bin bucket, depth and point-cloud ingest
 (textured or not), the mesh-dirty protocol of the incremental mesher,
 surface / slice exports, ``count_active``, the npy submap dict
 (``export_submap``, ``saveMap`` / ``loadMap``, byte-compatible with the
-JAX package's), ``reset`` and the ``init_sphere`` fixture. The map state
-lives on ``device``.
+JAX package's), the compact submap gather of the voxgraph wire
+(``export_submap_async`` / ``finish_export_submap``), remote submaps in
+descending slots, submap fusion (``fuse_submaps``,
+``fuse_submaps_incremental``), ``reset`` and the ``init_sphere`` fixture.
+The map state lives on ``device``.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from taichislam_tpu_torch.core.config import TSDFConfig
 from taichislam_tpu_torch.core.grid import reset_grid
 from taichislam_tpu_torch.models.base_map import BaseMap
 from taichislam_tpu_torch.ops import exports as exports_ops
+from taichislam_tpu_torch.ops import fusion as fusion_ops
 from taichislam_tpu_torch.ops import tsdf as tsdf_ops
 
 
@@ -155,9 +159,6 @@ class DenseTSDF(BaseMap):
         pack = torch.stack([stats["num_bins"], stats["bins_dropped"]]).cpu()
         n = int(pack[0]) + int(pack[1])
         self._bin_bucket = min(bin_bucket_for(n), self.cfg.max_bins)
-
-    def _tensor(self, a, dtype=None):
-        return torch.as_tensor(np.asarray(a, dtype=dtype), device=self.device)
 
     def _after_recast(self, stats):
         self.last_stats = stats
@@ -304,6 +305,43 @@ class DenseTSDF(BaseMap):
               f"{len(tsdf)/1024:.1f}k, time: {1000*(time.time()-s):.1f}ms")
         return obj
 
+    def export_submap_async(self, lane_bucket, block_bucket, submap_id=None,
+                            state=None):
+        """Start the compact (bitmap) gather of a submap on the device and
+        return its uint8 buffer without reading it. ``lane_bucket`` and
+        ``block_bucket`` bound the submap's observed voxels and blocks; a
+        truncation shows in the buffer's header. ``submap_id`` and
+        ``state`` re-gather a finished submap. Decode with
+        :meth:`finish_export_submap`."""
+        sid = self.active_submap_id if submap_id is None else submap_id
+        return exports_ops.bitmap_gather_packed(
+            self.cfg, lane_bucket, block_bucket,
+            self.state if state is None else state, sid)
+
+    def finish_export_submap(self, buf, lane_bucket, block_bucket):
+        """Decode an :meth:`export_submap_async` buffer into the submap dict
+        of :meth:`export_submap`, plus the header counts
+        (``kept_blocks``, ``total_blocks``, ``kept_vox``, ``total_vox``)."""
+        indices, tsdf, w_tsdf, occupy, color, kept_b, total_b, kept_v, \
+            total_v = exports_ops.unpack_bitmap_packed(
+                buf, lane_bucket, block_bucket, self.cfg.grid.V,
+                self.enable_texture)
+        info = {"kept_blocks": kept_b, "total_blocks": total_b,
+                "kept_vox": kept_v, "total_vox": total_v}
+        return self._submap_dict(indices, tsdf, w_tsdf, occupy, color), info
+
+    def input_remote_submap(self, submap):
+        """Load a peer's submap dict into the next free slot from the top
+        (remote submaps take descending slots); returns the slot."""
+        self.remote_submap_num += 1
+        idx = self.max_submap_num - self.remote_submap_num
+        self.load_numpy(idx, submap["indices"], submap["TSDF"],
+                        submap["W_TSDF"], submap["occupy"],
+                        submap.get("color", np.array([])))
+        R, T = submap["pose"]
+        self.set_base_pose_submap(idx, R, T)
+        return idx
+
     def load_numpy(self, submap_id, indices, tsdf, w_tsdf, occ, color):
         n = len(tsdf)
         cap = exports_ops.pow2_capacity(max(n, 1))
@@ -340,6 +378,90 @@ class DenseTSDF(BaseMap):
         print(f"[SubmapMapping] Loaded {len(obj['TSDF'])} voxels from "
               f"{filename}")
         return mapping
+
+    # -- submap fusion --------------------------------------------------------
+    def _fuse(self, submaps: "DenseTSDF", bcap: int, only_submap, full):
+        """Reduce until nothing drops, then write: the touched capacity
+        (global side) and the source block cap grow between attempts, and
+        the global map is written once, by the attempt that fitted. The
+        verdict is one host read per attempt."""
+        touched_cap = getattr(self, "_fuse_touched_bucket",
+                              self.cfg.max_touched_blocks)
+        sub_max = submaps.cfg.max_blocks
+        bases = self._bases()
+        attempts = 0
+        while True:
+            attempts += 1
+            red = None   # free the failed attempt's lanes first
+            glob_cfg = dataclasses.replace(self.cfg,
+                                           max_touched_blocks=touched_cap)
+            red = fusion_ops.fuse_reduce(submaps.cfg, glob_cfg, bcap,
+                                         submaps.state, *bases, only_submap)
+            tiles_over, src_over = (int(x) for x in torch.stack(
+                [red.stats["fuse_tiles_dropped"],
+                 red.stats["fuse_dropped"]]).cpu())
+            if tiles_over > 0 and touched_cap < self.cfg.max_blocks:
+                # target computed once: recomputing it per doubling never
+                # terminates ((cap + over) * 1.1 > cap for all cap)
+                target = (touched_cap + tiles_over) * 11 // 10
+                while touched_cap < target:
+                    touched_cap *= 2
+                touched_cap = min(touched_cap, self.cfg.max_blocks)
+                continue
+            if src_over > 0 and bcap < sub_max:
+                target = min(bcap + src_over, sub_max)
+                while bcap < target:
+                    bcap *= 2
+                bcap = min(bcap, sub_max)
+                continue
+            break
+        if full:
+            self.reset()
+        self.state = fusion_ops.fuse_apply(glob_cfg, self.state, red)
+        self._fuse_touched_bucket = touched_cap
+        self._mark_mesh_dirty_full()
+        self.last_stats = red.stats
+        V3 = submaps.cfg.grid.voxels_per_block
+        self.last_fuse = {"bcap": bcap, "touched_cap": touched_cap,
+                          "attempts": attempts, "lanes": 7 * bcap * V3}
+        if src_over > 0:
+            print(f"[DenseTSDF] fuse sources dropped: {src_over} (block cap)")
+
+    def _collection_bcap(self, submaps: "DenseTSDF") -> int:
+        """Source block cap covering every allocated block of ``submaps``:
+        its block count rounded up to a power of two, at least 64."""
+        need = int(submaps.state.num_blocks) + 1
+        bcap = 64
+        while bcap < need:
+            bcap *= 2
+        return min(bcap, submaps.cfg.max_blocks)
+
+    def fuse_submaps(self, submaps: "DenseTSDF"):
+        """Reset, then fuse every submap of ``submaps`` into this (global)
+        map through THIS map's pose registry (the one PGO updates)."""
+        t = time.time()
+        self._fuse(submaps, self._collection_bcap(submaps), None, True)
+        print(f"[DenseTSDF] Fuse submaps {(time.time()-t)*1000:.1f}ms, "
+              f"active local: {submaps.active_submap_id} "
+              f"remote: {submaps.remote_submap_num}")
+
+    def fuse_submaps_incremental(self, submaps: "DenseTSDF", submap_id: int,
+                                 sub_bcap=None, defer_verdict=False):
+        """Splat ONE finished submap into this map without a reset. The
+        weighted merge is associative, so fusing each submap once equals
+        reset + refuse-all until PGO moves base poses (then the caller
+        takes :meth:`fuse_submaps`). ``sub_bcap`` bounds the submap's own
+        blocks (default: the whole collection's). The capacity verdict is
+        settled before this returns, also with ``defer_verdict=True``."""
+        t = time.time()
+        bcap = min(int(sub_bcap), submaps.cfg.max_blocks) \
+            if sub_bcap is not None else self._collection_bcap(submaps)
+        self._fuse(submaps, bcap, int(submap_id), False)
+        print(f"[DenseTSDF] Fuse submap {submap_id} incrementally "
+              f"{(time.time()-t)*1000:.1f}ms")
+
+    def resolve_deferred_fuse(self):
+        """Nothing to settle: every fuse settles its verdict at once."""
 
     def reset(self):
         self.state = reset_grid(self.state)

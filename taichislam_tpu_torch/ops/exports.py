@@ -8,9 +8,9 @@ are compacted in linear-index order, so the output arrays equal the JAX
 package's element for element. The world position sum
 ``R0·l0 + R1·l1 + R2·l2 + T`` is contracted as XLA contracts it (``dot3``).
 
-The byte layouts of ``sparse_gather_packed`` and the numpy decoders are
-those of the JAX package, so a map exported by one package loads in the
-other.
+The byte layouts of ``sparse_gather_packed``, ``bitmap_gather_packed``
+and the numpy decoders are those of the JAX package, so a map or submap
+exported by one package loads in the other.
 """
 
 from __future__ import annotations
@@ -232,6 +232,11 @@ def sparse_gather(cfg: TSDFConfig, capacity: int, block_cap: int,
             outs[5].to(torch.int8), out_col, kept, total)
 
 
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """The tensor's bytes (native little-endian) as a flat uint8 tensor."""
+    return t.contiguous().view(torch.uint8).reshape(-1)
+
+
 def sparse_gather_packed(cfg: TSDFConfig, capacity: int, block_cap: int,
                          state: GridState, active_submap: int):
     """:func:`sparse_gather` packed into one uint8 buffer at the submap wire
@@ -241,16 +246,109 @@ def sparse_gather_packed(cfg: TSDFConfig, capacity: int, block_cap: int,
     """
     idx, tsdf, w, occ, col, kept, total = sparse_gather(
         cfg, capacity, block_cap, state, active_submap)
-
-    def b(t):
-        return t.contiguous().view(torch.uint8).reshape(-1)
-
+    b = _bytes
     parts = [b(torch.stack([kept, total]).to(torch.int32)),
              b(torch.clamp(idx, -32767, 32767).to(torch.int16)),
              b(tsdf.half()), b(w.half()), b(occ)]
     if cfg.texture_enabled:
         parts.append(b(col.half()))
     return torch.cat(parts)
+
+
+def bitmap_gather_packed(cfg: TSDFConfig, lane_cap: int, block_cap: int,
+                         state: GridState, active_submap: int):
+    """The active submap's observed voxels in the compact submap wire
+    schema, one uint8 buffer (about 5.1 B per voxel): block origins, a
+    per-block observed bitmap, and value planes of the observed voxels
+    only, in bitmap order (block-major, voxel-linear). Layout,
+    little-endian:
+
+    ``[16 B: kept_blocks, total_blocks, kept_vox, total_vox int32]
+    [block_cap × 6: block origin voxel int16 × 3]
+    [block_cap × V³/8: observed bitmap uint8, voxel-linear, LSB first]
+    [lane_cap × 4: (TSDF f16, W_TSDF f16) pairs] [lane_cap: occupy int8]
+    [lane_cap × 6 if textured: (color0 f16, color1 f16) pairs, then
+    color2 f16]``
+
+    A ``total_*`` above its cap means the gather was truncated. Decode with
+    :func:`unpack_bitmap_packed`."""
+    spec = cfg.grid
+    nb = spec.max_blocks + 1
+    V3 = spec.voxels_per_block
+    ch = state.channels
+    dev = state.table.device
+    obs = ch["TSDF_observed"].reshape(nb, V3) > 0
+    pre_mask = _active_voxel_mask(spec, state, active_submap) & obs
+    slot_of, bvalid, bkept, bdropped = _compact_blocks(spec, pre_mask,
+                                                       block_cap)
+    sl = slot_of.long()
+    origin = torch.where(bvalid[:, None],
+                         block_origin_voxel(spec, state.block_coords[sl]),
+                         torch.zeros((), dtype=torch.int32, device=dev))
+    mask = pre_mask[sl] & bvalid[:, None]
+    weights = 2 ** torch.arange(8, dtype=torch.int32, device=dev)
+    bitmap = (mask.reshape(block_cap, V3 // 8, 8).to(torch.int32) *
+              weights).sum(-1).to(torch.uint8)
+
+    def plane(name):
+        return ch[name].reshape(nb, V3)[sl].reshape(-1)
+
+    ops = [plane("TSDF").half(), plane("W_TSDF").half(), plane("occupy")]
+    fills = [0.0, 0.0, 0]
+    if cfg.texture_enabled:
+        colg = ch["color"][sl].half()                   # (cap, 3, V³)
+        ops += [colg[:, a, :].reshape(-1) for a in range(3)]
+        fills += [0.0, 0.0, 0.0]
+    outs, vkept, vtotal = compact_sort(mask.reshape(-1), lane_cap, ops,
+                                       fills)
+    b = _bytes
+    parts = [b(torch.stack([bkept, bkept + bdropped, vkept, vtotal])
+               .to(torch.int32)),
+             b(torch.clamp(origin, -32767, 32767).to(torch.int16)),
+             bitmap.reshape(-1),
+             b(torch.stack(outs[0:2], -1)), b(outs[2].to(torch.int8))]
+    if cfg.texture_enabled:
+        parts += [b(torch.stack(outs[3:5], -1)), b(outs[5])]
+    return torch.cat(parts)
+
+
+def unpack_bitmap_packed(buf, lane_cap: int, block_cap: int, V: int,
+                         with_color: bool):
+    """Host-side inverse of :func:`bitmap_gather_packed` (numpy views):
+    (indices int16 (n, 3), tsdf f16, w f16, occ int8, color f16 (n, 3) or
+    empty, kept_blocks, total_blocks, kept_vox, total_vox)."""
+    if isinstance(buf, torch.Tensor):
+        buf = buf.cpu().numpy()
+    buf = np.asarray(buf)
+    V3 = V * V * V
+    kept_b, total_b, kept_v, total_v = (int(x)
+                                        for x in buf[:16].view(np.int32))
+    kb = min(kept_b, block_cap)
+    kv = min(kept_v, lane_cap)
+    o = 16
+    origin = buf[o:o + block_cap * 6].view(np.int16).reshape(
+        block_cap, 3)[:kb]
+    o += block_cap * 6
+    bits = np.unpackbits(
+        buf[o:o + block_cap * (V3 // 8)].reshape(block_cap, V3 // 8)[:kb],
+        axis=1, bitorder="little").astype(bool)            # (kb, V³)
+    o += block_cap * (V3 // 8)
+    tw = buf[o:o + lane_cap * 4].view(np.float16).reshape(lane_cap, 2)[:kv]
+    o += lane_cap * 4
+    occ = buf[o:o + lane_cap].view(np.int8)[:kv]
+    o += lane_cap
+    idx = (origin[:, None, :].astype(np.int32) +
+           _intra_offsets_np(V)[None]).reshape(-1, 3)[bits.reshape(-1)][:kv]
+    if with_color:
+        c01 = buf[o:o + lane_cap * 4].view(np.float16).reshape(lane_cap,
+                                                               2)[:kv]
+        o += lane_cap * 4
+        c2 = buf[o:o + lane_cap * 2].view(np.float16)[:kv]
+        col = np.stack([c01[:, 0], c01[:, 1], c2], axis=-1)
+    else:
+        col = np.array([])
+    return (np.clip(idx, -32767, 32767).astype(np.int16), tw[:, 0].copy(),
+            tw[:, 1].copy(), occ, col, kept_b, total_b, kept_v, total_v)
 
 
 def unpack_sparse_delivery(buf, capacity: int, with_color: bool):

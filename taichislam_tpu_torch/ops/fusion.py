@@ -1,0 +1,246 @@
+"""Voxgraph-style submap -> global map TSDF fusion (PyTorch).
+
+Counterpart of ``taichislam_tpu.ops.fusion``. Every observed submap voxel
+is moved through its submap's base pose and splatted into the surrounding
+global voxels with trilinear weights. Like the reference, the (0,0,0)
+corner is skipped, so 7 corners carry weight. Sources are compacted at
+block granularity first (``max_fuse_blocks`` observed blocks, every voxel
+a masked lane), so the splat has ``7 × max_fuse_blocks × V³`` lanes.
+
+The per-voxel sums (Σw, Σw·tsdf, Σocc and, textured, Σw·color) always
+go through the sorted segmented reduction (K1,
+``ops/kernels/seg_accum.py``): 3 values, or 6 when textured. The JAX
+package takes XLA scatters instead when ``V³ % 128 != 0``. The merge is
+closed form: ``(D·W + Σw·d) / (W + Σw)``, with no Wmax clamp, as in the
+reference.
+
+The grid state is changed in place, so the fusion is split in two:
+:func:`fuse_reduce` (splat + K1) reads only the submap grid and returns
+the touched list and its counts, and :func:`fuse_apply` writes the global
+map. A caller that finds ``fuse_tiles_dropped > 0`` grows the touched
+capacity and reduces again before anything is written. Weighted fusion is
+not idempotent, so a retry must never re-apply on top of a failed attempt.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from taichislam_tpu_torch.core.config import TSDFConfig
+from taichislam_tpu_torch.core.geometry import dot3, fma
+from taichislam_tpu_torch.core.grid import (GridState, allocate_blocks,
+                                            block_origin_voxel, lookup_slots,
+                                            voxel_to_block_c)
+from taichislam_tpu_torch.ops.exports import _compact_blocks, _intra_offsets
+from taichislam_tpu_torch.ops.kernels.seg_accum import (
+    SENTINEL_BLOCK, segmented_block_reduce)
+
+
+class SplatContribs(NamedTuple):
+    """Lane count L = 7 × max_fuse_blocks × V³, corner-major; every voxel
+    of the compacted observed source blocks is a source, and ``ok`` masks
+    the unobserved ones."""
+    blin: torch.Tensor     # (L,) int32 target linear block ids, -1 outside
+    ok: torch.Tensor       # (L,) bool
+    intra: torch.Tensor    # (L,) int32 intra-block voxel index
+    w: torch.Tensor        # (L,) f32 splat weight (w_tsdf × trilinear)
+    wd: torch.Tensor       # (L,) f32 w × tsdf
+    occ: torch.Tensor      # (L,) int32 occupancy counts
+    wc: torch.Tensor       # (3, L) f32 w × color (zeros when untextured)
+    kept: torch.Tensor     # 0-d int32 sources used
+    dropped: torch.Tensor  # 0-d int32 sources in blocks past the cap
+
+
+def splat_contributions(sub_cfg: TSDFConfig, glob_cfg: TSDFConfig,
+                        max_fuse_blocks: int, sub_state: GridState,
+                        base_R, base_T,
+                        only_submap: Optional[int] = None) -> SplatContribs:
+    """The 7-corner trilinear splat of the submap grid's observed voxels
+    (all submaps, or only ``only_submap``) through the base poses
+    ``base_R`` (S, 3, 3), ``base_T`` (S, 3) f32 into the global grid."""
+    spec = sub_cfg.grid
+    gspec = glob_cfg.grid
+    ch = sub_state.channels
+    dev = sub_state.table.device
+    V3 = spec.voxels_per_block
+    bcap = max(1, min(spec.max_blocks, max_fuse_blocks))
+    C = bcap * V3
+
+    obs_full = ch["TSDF_observed"] > 0                  # (nb, V³)
+    blk_ok = sub_state.block_active.clone()
+    blk_ok[-1] = False
+    if only_submap is not None and only_submap >= 0:
+        # incremental mode: the sources of ONE submap (the weighted merge
+        # is associative, so one splat per finished submap into a global
+        # map that is not reset equals reset + refuse-all)
+        blk_ok &= sub_state.block_coords[:, 0] == int(only_submap)
+    src_mask = obs_full & blk_ok[:, None]
+    total = src_mask.sum(dtype=torch.int32)
+    slot_of, bvalid, _, _ = _compact_blocks(spec, src_mask, bcap)
+    sl = slot_of.long()
+
+    src_valid = (obs_full[sl] & bvalid[:, None]).reshape(-1)
+    src_tsdf = ch["TSDF"][sl].float().reshape(-1)
+    src_w = ch["W_TSDF"][sl].float().reshape(-1)
+    src_occ = ch["occupy"][sl].to(torch.int32).reshape(-1)
+    kept = src_valid.sum(dtype=torch.int32)
+
+    # submap-local voxel centre -> world -> global voxel units, per
+    # component: R·l + T contracted as XLA contracts it, then × 1/voxel
+    coords = sub_state.block_coords[sl]                 # (bcap, 4)
+    base = block_origin_voxel(spec, coords)             # (bcap, 3)
+    off = _intra_offsets(spec.V, dev)
+    vs = float(np.float32(spec.voxel_scale))
+    loc = [((base[:, a:a + 1] + off[None, :, a]).float() * vs).reshape(-1)
+           for a in range(3)]
+    s = torch.clamp(coords[:, 0], 0, base_R.shape[0] - 1).long()
+    s = s.repeat_interleave(V3)
+    R, T = base_R[s], base_T[s]
+    inv_gv = float(np.float32(1.0 / glob_cfg.voxel_scale))
+    gf = [(dot3(R[:, a, 0], loc[0], R[:, a, 1], loc[1], R[:, a, 2],
+                loc[2]) + T[:, a]) * inv_gv for a in range(3)]
+    del R, T, loc, s
+    low = [torch.floor(g).to(torch.int32) for g in gf]
+    fr = [g - lo.float() for g, lo in zip(gf, low)]
+    del gf
+
+    L = 7 * C
+    i32 = dict(dtype=torch.int32, device=dev)
+    out_blin = torch.empty((L,), **i32)
+    out_intra = torch.empty((L,), **i32)
+    out_ok = torch.empty((L,), dtype=torch.bool, device=dev)
+    out_w = torch.empty((L,), dtype=torch.float32, device=dev)
+    out_wd = torch.empty((L,), dtype=torch.float32, device=dev)
+    out_occ = torch.empty((L,), **i32)
+    zero = torch.zeros((), device=dev)
+    corner = 0
+    for di in (0, 1):
+        for dj in (0, 1):
+            for dk in (0, 1):
+                if di + dj + dk == 0:
+                    continue   # the reference's skipped corner
+                wgt = ((fr[0] if di else 1.0 - fr[0]) *
+                       (fr[1] if dj else 1.0 - fr[1]) *
+                       (fr[2] if dk else 1.0 - fr[2]))
+                wgt = torch.where(src_valid, wgt, zero)
+                blin, intra, inb = voxel_to_block_c(
+                    gspec, 0, low[0] + di, low[1] + dj, low[2] + dk)
+                ok = src_valid & inb & (wgt > 0)
+                w = torch.where(ok, wgt * src_w, zero)
+                lanes = slice(corner * C, (corner + 1) * C)
+                out_blin[lanes] = blin
+                out_intra[lanes] = intra
+                out_ok[lanes] = ok
+                out_w[lanes] = w
+                out_wd[lanes] = w * src_tsdf
+                out_occ[lanes] = torch.where(ok, src_occ,
+                                             torch.zeros_like(src_occ))
+                corner += 1
+    if sub_cfg.texture_enabled:
+        colg = ch["color"][sl].float()                  # (bcap, 3, V³)
+        wc = torch.stack([out_w * colg[:, a, :].reshape(-1).repeat(7)
+                          for a in range(3)])
+    else:
+        wc = torch.zeros((3, L), dtype=torch.float32, device=dev)
+    return SplatContribs(blin=out_blin, ok=out_ok, intra=out_intra, w=out_w,
+                         wd=out_wd, occ=out_occ, wc=wc, kept=kept,
+                         dropped=total - kept)
+
+
+class FuseReduced(NamedTuple):
+    """What :func:`fuse_reduce` hands to :func:`fuse_apply`."""
+    touched: torch.Tensor   # (max_touched,) int32 global block ids, -1 pad
+    acc: torch.Tensor       # (max_touched, 3 or 6, V³) f32 sums
+    stats: dict             # fuse_sources, fuse_dropped, fuse_tiles_dropped
+
+
+def reduce_lanes(glob_cfg: TSDFConfig, c: SplatContribs):
+    """K1's inputs at the fusion site: (bkey, intra, values) with the
+    masked lanes on the sentinel key; values Σw, Σw·d, Σocc and, textured,
+    the three Σw·c."""
+    bkey = torch.where(c.ok, c.blin, torch.full_like(c.blin, SENTINEL_BLOCK))
+    intra = torch.where(c.ok, c.intra, torch.zeros_like(c.intra))
+    vals = [c.w, c.wd, c.occ.float()]
+    if glob_cfg.texture_enabled:
+        vals += [c.wc[0], c.wc[1], c.wc[2]]
+    return bkey, intra, vals
+
+
+def fuse_reduce(sub_cfg: TSDFConfig, glob_cfg: TSDFConfig,
+                max_fuse_blocks: int, sub_state: GridState, base_R, base_T,
+                only_submap: Optional[int] = None) -> FuseReduced:
+    """The splat and its per-block sums through K1, at most
+    ``glob_cfg.max_touched_blocks`` touched global blocks. Reads only the
+    submap grid; ``stats["fuse_tiles_dropped"] > 0`` means the touched
+    capacity was too small."""
+    gspec = glob_cfg.grid
+    V3 = gspec.voxels_per_block
+    c = splat_contributions(sub_cfg, glob_cfg, max_fuse_blocks, sub_state,
+                            base_R, base_T, only_submap)
+    stats = {"fuse_sources": c.kept, "fuse_dropped": c.dropped}
+    lanes = reduce_lanes(glob_cfg, c)
+    del c
+    touched, acc, n_touched, _ = segmented_block_reduce(
+        *lanes, V3, glob_cfg.max_touched_blocks, site="fusion")
+    stats["fuse_tiles_dropped"] = torch.clamp(
+        n_touched - glob_cfg.max_touched_blocks, min=0)
+    return FuseReduced(touched, acc, stats)
+
+
+def fuse_apply(glob_cfg: TSDFConfig, global_state: GridState,
+               red: FuseReduced) -> GridState:
+    """Allocate the touched blocks and merge the sums into the global map:
+    ``D' = (D·W + Σw·d) / (W + Σw)``, ``W' = W + Σw`` (no Wmax clamp), the
+    observed flag, ``occupy += Σocc`` (int8) and the color
+    ``(c·W + Σw·c) / W'``. In place; returns the state."""
+    gspec = glob_cfg.grid
+    touched, acc = red.touched, red.acc
+    row_ok = touched >= 0
+    cand = torch.where(row_ok, touched, torch.full_like(touched, -1))
+    global_state = allocate_blocks(gspec, global_state, cand, row_ok, 0)
+    slots = lookup_slots(gspec, global_state.table, cand)
+    tgt = torch.where(row_ok, slots,
+                      torch.full_like(slots, gspec.max_blocks)).long()
+    zero = torch.zeros((), device=acc.device)
+    w_sum = torch.where(row_ok[:, None], acc[:, 0, :], zero)
+    wd_sum = torch.where(row_ok[:, None], acc[:, 1, :], zero)
+    occ_sum = torch.where(row_ok[:, None], acc[:, 2, :], zero)
+
+    ch = global_state.channels
+    D = ch["TSDF"][tgt].float()
+    W = ch["W_TSDF"][tgt].float()
+    touched_v = w_sum > 0
+    new_W = W + w_sum
+    ch["TSDF"][tgt] = torch.where(touched_v, fma(D, W, wd_sum) / new_W,
+                                  D).to(glob_cfg.dtype)
+    ch["W_TSDF"][tgt] = new_W.to(glob_cfg.dtype)
+    ch["TSDF_observed"][tgt] = torch.maximum(ch["TSDF_observed"][tgt],
+                                             touched_v.to(torch.int8))
+    ch["occupy"][tgt] = (ch["occupy"][tgt].to(torch.int32) +
+                         occ_sum.to(torch.int32)).to(torch.int8)
+    if glob_cfg.texture_enabled:
+        den = torch.clamp(new_W, min=1e-20)
+        col = ch["color"][tgt].float()                  # (T, 3, V³)
+        wc = torch.where(row_ok[:, None, None], acc[:, 3:6, :], zero)
+        new_c = torch.where(touched_v[:, None, :],
+                            fma(col, W[:, None, :], wc) / den[:, None, :],
+                            col)
+        ch["color"][tgt] = new_c.to(glob_cfg.dtype)
+    for v in ch.values():
+        v[-1] = 0
+    return global_state
+
+
+def fuse_submaps(sub_cfg: TSDFConfig, glob_cfg: TSDFConfig,
+                 max_fuse_blocks: int, global_state: GridState,
+                 sub_state: GridState, base_R, base_T,
+                 only_submap: Optional[int] = None):
+    """Fuse the submaps (or only ``only_submap``) into ``global_state``
+    as the JAX function does: one reduce and one apply, whatever the
+    touched count. In place; returns (global_state, stats)."""
+    red = fuse_reduce(sub_cfg, glob_cfg, max_fuse_blocks, sub_state, base_R,
+                      base_T, only_submap)
+    return fuse_apply(glob_cfg, global_state, red), red.stats

@@ -16,6 +16,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 SENTINEL_BLOCK = 2 ** 24   # invalid-lane block key; sorts last
+SENTINEL_KEY = 2 ** 30     # invalid packed key of segmented_block_accumulate
 CHUNK = 2048               # lane-cap rounding unit (16 rows x 128 lanes)
 
 
@@ -110,11 +111,13 @@ def segmented_block_reduce_ref(bkey, intra, vals: Sequence[torch.Tensor],
 def segmented_block_reduce(bkey, intra, vals: Sequence[torch.Tensor],
                            V3: int, max_touched: int,
                            lane_cap: int | None = None,
-                           presorted: bool = False, vals_f16: bool = False):
+                           presorted: bool = False, vals_f16: bool = False,
+                           site: str = "other"):
     """Sort lanes by (block key, intra index) and sum each touched block's
-    lanes into an (n_vals, V3) tile; same signature and results as
+    lanes into an (n_vals, V3) tile; same results as
     :func:`segmented_block_reduce_ref`. CUDA tensors run
-    ``csrc/seg_accum.cu``; CPU tensors run the plain version."""
+    ``csrc/seg_accum.cu``; CPU tensors run the plain version. ``site``
+    names the call site in the per-site launch counts."""
     if bkey.device.type == "cpu":
         return segmented_block_reduce_ref(bkey, intra, vals, V3, max_touched,
                                           lane_cap, presorted, vals_f16)
@@ -141,7 +144,21 @@ def segmented_block_reduce(bkey, intra, vals: Sequence[torch.Tensor],
         scratch.data_ptr(), stream)
     build.check(err, "seg_accum_launch")
     segmented_block_reduce.launches += 1
+    sites = segmented_block_reduce.site_launches
+    sites[site] = sites.get(site, 0) + 1
     return touched, acc, n_touched, s.lanes_dropped
 
 
 segmented_block_reduce.launches = 0
+segmented_block_reduce.site_launches = {}   # call site -> launches
+
+
+def segmented_block_accumulate(keys, w, wd, V3: int, max_touched: int):
+    """Back-compat form over packed keys (``bkey * V3 + intra``;
+    ``SENTINEL_KEY`` or more for invalid lanes): returns (touched, acc,
+    n_touched) of :func:`segmented_block_reduce` on the values (w, wd)."""
+    invalid = keys >= SENTINEL_KEY
+    bk = torch.div(keys, V3, rounding_mode="floor")
+    bkey = torch.where(invalid, torch.full_like(keys, SENTINEL_BLOCK), bk)
+    intra = torch.where(invalid, torch.zeros_like(keys), keys - bk * V3)
+    return segmented_block_reduce(bkey, intra, (w, wd), V3, max_touched)[:3]

@@ -88,7 +88,7 @@ def depth_to_points_c(cfg: TSDFConfig, depth_mm: torch.Tensor,
             th, tw = texture.shape[0], texture.shape[1]
             cj, ci = geometry.color_ind_from_depth_pt(
                 ii.float(), jj.float(), K_dep, K_color, tw, th)
-            color = texture[cj.long(), ci.long(), :].float()
+            color = geometry.texture_at(texture, cj, ci)
     return (px, py, dep), dep, color, valid
 
 
@@ -141,7 +141,7 @@ def bin_points_c(cfg: TSDFConfig, px, py, pz, z, color, valid) -> Bins:
         col = color[perm]
         vals = vals + (col[:, 0], col[:, 1], col[:, 2])
     _, acc, _, _ = segmented_block_reduce(bkeyz, intra, vals, B, 1,
-                                          presorted=True)
+                                          presorted=True, site="bins")
     count = acc[0, 0]
     sum_color = (torch.stack([acc[0, 5], acc[0, 6], acc[0, 7]], -1)
                  if textured else torch.zeros((B, 3), device=acc.device))
@@ -242,7 +242,7 @@ def integrate(cfg: TSDFConfig, state: GridState, bins_pts, z, color, valid,
                 live.shape).reshape(-1), zero) for a in range(3))
     touched_rel, acc, n_touched, lanes_dropped = segmented_block_reduce(
         bkey, intra_k, vals, V3, cfg.max_touched_blocks,
-        lane_cap=(cfg.max_march_lanes or None), vals_f16=True)
+        lane_cap=(cfg.max_march_lanes or None), vals_f16=True, site="march")
     live_lanes = lane_ok.sum(dtype=torch.int32)
     touched_dropped = torch.clamp(n_touched - cfg.max_touched_blocks, min=0)
 

@@ -235,3 +235,35 @@ def test_model_exports_match_jax():
     tm.reset()
     assert tm.count_active() == 0 and int(tm.state.num_blocks) == 0
     assert tm.consume_mesh_dirty() == (True, None)
+
+
+@pytest.mark.parametrize("caps", [(4096, 64), (300, 64), (4096, 3)],
+                         ids=["full", "lanes_cut", "blocks_cut"])
+def test_bitmap_gather_packed_matches_jax(scene, caps):
+    """The compact submap wire (async finalize): byte-identical buffers,
+    truncated gathers included, and each package's decoder reads the other
+    package's buffer to the same arrays."""
+    cj, ct, js, _, _ = scene
+    lane_cap, block_cap = caps
+    for sub in (0, 1):
+        wbuf = np.asarray(jx.bitmap_gather_packed(cj, lane_cap, block_cap, js,
+                                                  jnp.int32(sub)))
+        gbuf = tx.bitmap_gather_packed(ct, lane_cap, block_cap,
+                                       _port_state(js), sub).numpy()
+        assert wbuf.dtype == gbuf.dtype == np.uint8
+        np.testing.assert_array_equal(wbuf, gbuf)
+        V, tex = ct.grid.V, ct.texture_enabled
+        j_of_g = jx.unpack_bitmap_packed(gbuf, lane_cap, block_cap, V, tex)
+        g_of_j = tx.unpack_bitmap_packed(wbuf, lane_cap, block_cap, V, tex)
+        for a, b in zip(j_of_g, g_of_j):
+            np.testing.assert_array_equal(a, b)
+        kept_v, total_v = g_of_j[7], g_of_j[8]
+        assert kept_v == min(total_v, lane_cap) and total_v > 0
+        if caps == (4096, 64):
+            # the untruncated gather holds the sparse gather's voxels
+            idx = np.asarray(jx.sparse_gather(cj, 4096, 64, js,
+                                              jnp.int32(sub))[0])[:kept_v]
+            order = np.lexsort(idx.T)
+            got = g_of_j[0].astype(np.int32)
+            np.testing.assert_array_equal(got[np.lexsort(got.T)],
+                                          idx[order])

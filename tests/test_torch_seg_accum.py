@@ -127,3 +127,52 @@ def test_wrapper_rejects_bad_inputs():
         tk.segmented_block_reduce(torch.from_numpy(bkey),
                                   torch.from_numpy(intra),
                                   [torch.from_numpy(vals[0])] * 9, V3, 8)
+
+
+@pytest.mark.parametrize("n_blocks,lanes", [(5, 1024), (37, 2048), (1, 256)])
+def test_segmented_accumulate_matches_pallas(n_blocks, lanes):
+    """The back-compat wrapper over packed keys, at the shapes of
+    test_pallas_accum.py's reference test."""
+    rng = np.random.default_rng(n_blocks)
+    keys = (rng.integers(0, n_blocks, lanes) * V3 +
+            rng.integers(0, V3, lanes)).astype(np.int32)
+    keys[rng.random(lanes) < 0.1] = jk.SENTINEL_KEY
+    w = rng.random(lanes).astype(np.float32)
+    wd = rng.standard_normal(lanes).astype(np.float32)
+    want = jk.segmented_block_accumulate(jnp.asarray(keys), jnp.asarray(w),
+                                         jnp.asarray(wd), V3, max_touched=64,
+                                         interpret=True)
+    got = tk.segmented_block_accumulate(torch.from_numpy(keys),
+                                        torch.from_numpy(w),
+                                        torch.from_numpy(wd), V3, 64)
+    touched = np.asarray(want[0])
+    np.testing.assert_array_equal(touched, got[0].numpy())
+    assert int(want[2]) == int(got[2]) == n_blocks
+    rows = touched >= 0
+    np.testing.assert_allclose(np.asarray(want[1])[rows],
+                               got[1].numpy()[rows], atol=1e-4)
+
+
+def test_fusion_shape_v1000_six_values():
+    """K1's twin at the submap fusion site of a V = 10 grid: V³ = 1000 (not
+    a multiple of 128, so the Pallas kernel cannot take it), 6 values, not
+    presorted, no lane cap. Held against a numpy reference."""
+    V3_ = 1000
+    rng = np.random.default_rng(8)
+    n = 6000
+    bkey = rng.integers(0, 50, n).astype(np.int32)
+    bkey[rng.random(n) < 0.2] = tk.SENTINEL_BLOCK
+    intra = rng.integers(0, V3_, n).astype(np.int32)
+    vals = [rng.standard_normal(n).astype(np.float32) for _ in range(6)]
+    touched, acc, n_touched, dropped = tk.segmented_block_reduce(
+        torch.from_numpy(bkey), torch.from_numpy(intra),
+        [torch.from_numpy(v) for v in vals], V3_, 64)
+    ok = bkey < tk.SENTINEL_BLOCK
+    blocks = np.unique(bkey[ok])
+    assert int(n_touched) == len(blocks) and int(dropped) == 0
+    np.testing.assert_array_equal(touched.numpy()[:len(blocks)], blocks)
+    want = np.zeros((len(blocks), 6, V3_), np.float64)
+    row = np.searchsorted(blocks, bkey[ok])
+    for v in range(6):
+        np.add.at(want[:, v], (row, intra[ok]), vals[v][ok])
+    np.testing.assert_allclose(acc.numpy()[:len(blocks)], want, atol=1e-5)

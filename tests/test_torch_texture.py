@@ -189,3 +189,28 @@ def test_bridge_carries_color_both_ways():
     a = np.asarray(js.channels["color"])
     assert back.channels["color"].shape == a.shape == (65, 3, 512)
     np.testing.assert_array_equal(back.channels["color"], a)
+
+
+def test_color_rows_past_the_image_clamp_as_jax():
+    """A color camera with a longer focal length maps depth rows past the
+    color image's last row; the reference's bounds test (rows against the
+    width) lets them through and JAX's gather clamps them to the last row.
+    The port clamps the same way."""
+    kc = np.asarray([30.0, 0, 15.3, 0, 34.0, 12.6, 0, 0, 1], np.float32)
+    kw = dict(BASE, color_same_proj=False)
+    cj, ct = JConfig(pallas_accum="on", **kw), TConfig(**kw)
+    depth, tex, R, T = _frames(1)[0]
+    js, _ = jt.integrate_depth(
+        cj, jt.make_tsdf_state(cj), jnp.asarray(depth), jnp.asarray(tex),
+        jnp.asarray(R), jnp.asarray(T), jnp.asarray(K), jnp.asarray(kc),
+        jnp.int32(0))
+    rows = tgeo.color_ind_from_depth_pt(
+        torch.arange(0, 32, 2.0).repeat(12), torch.arange(0, 24, 2.0)
+        .repeat_interleave(16), torch.from_numpy(K), torch.from_numpy(kc),
+        32, 24)[0]
+    assert int(rows.max()) >= 24
+    ps, _ = tt.integrate_depth(
+        ct, tt.make_tsdf_state(ct), torch.from_numpy(depth.astype(np.int32)),
+        torch.from_numpy(tex), torch.from_numpy(R), torch.from_numpy(T),
+        torch.from_numpy(K), torch.from_numpy(kc), 0)
+    _assert_states_match(js, bridge.grid_state_to_numpy(ps))

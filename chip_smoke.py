@@ -4,7 +4,13 @@
 Phases:
   1. card line (nvidia-smi) and the kernel build (nvcc, from csrc/);
   2. each hand-written kernel against its plain PyTorch twin on the card,
-     at the main path's shapes, with both times (CUDA events, median);
+     at the main path's shapes (K1 at its five call sites, two calls
+     bit-identical, and with a lane cap inside a block; K2 with and without
+     scans; K3 at 264 and 1056 rows, budgets 3 and 32, stats equal to the
+     twin's), with both times (CUDA events, median), the bound (bytes or
+     operations, counted from this run's inputs: valid lanes, updating
+     voxels, each sweep's rows), the library yardstick where there is one, and the CUDA kernels of one call from
+     torch.profiler (only the kernel's own, no aten op but allocation);
   3. the main path at the bench configuration: 640x480 depth frames fused
      into a 5 cm TSDF (V = 16, 2048 blocks, float16 storage) with the
      per-frame incremental ESDF (budget 3, and budget 1, which takes the
@@ -89,120 +95,268 @@ def require(cond, what):
 
 
 # ---------------------------------------------------------------------------
-# phase 2: kernels against their twins
+# phase 2: kernels against their twins, their bounds and yardsticks
 # ---------------------------------------------------------------------------
+
+# the least time the card could take (NVIDIA's data sheet, H100 SXM at
+# 700 W): bytes over the HBM3 rate; f32 operations outside the tensor
+# cores over their issue rate. The sheet's 67 TFLOP/s counts an FMA as two
+# operations; the sweeps' adds, compares and mins are one each and issue
+# at half that.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12 / 2
+
+
+def bound(n_bytes, n_ops=0.0):
+    """(bound_ms, bound_by) of work moving ``n_bytes`` (each input read
+    once, each output written once) and doing ``n_ops`` f32 operations
+    that are not FMAs."""
+    tb = n_bytes / HBM_BYTES_PER_S * 1e3
+    to = n_ops / F32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def sweep_row_ops(V, n_upd, scans):
+    """f32 operations of one row of ``sweep_row`` (csrc/esdf_sweep.cu),
+    counted from its code, selects and index arithmetic left out: five
+    compares per voxel of the row and its halo (observed, fixed, the two
+    source tests, the sign); a subtract and a compare per interior voxel
+    (the change test); for each of the ``n_upd`` voxels that update, 26
+    neighbour mins or maxes, three candidate adds, two candidate mins, the
+    eps add, its compare and two clamps, plus the min with the scan
+    candidate on a scan sweep; on a scan sweep, the six axis scans: 2 V^2
+    lines per axis, forward over W - 1 positions (5 operations, 6 off the
+    first axis) and back over W - 2 (6 operations)."""
+    W = V + 2
+    ops = 5 * W ** 3 + 2 * V ** 3 + (35 + int(scans)) * n_upd
+    if scans:
+        per_line = [(W - 1) * (5 if axis == 0 else 6) + (W - 2) * 6
+                    for axis in range(3)]
+        ops += 2 * V * V * sum(per_line)
+    return ops
+
+
+def updating_voxels(enc, V, gamma):
+    """(N,) count per row of the interior voxels whose side is not zero
+    where the row updates: observed and not fixed (the loop kernel's rule)."""
+    import torch
+    from taichislam_tpu_torch.ops.kernels import esdf_sweep as ks
+    W = V + 2
+    obs = enc < ks.ENC_BIG * 0.5
+    fixed = obs & (enc.abs() < float(np.float32(gamma)))
+    c = torch.arange(W, device=enc.device)
+    inter1 = (c >= 1) & (c <= V)
+    inter = (inter1.view(W, 1, 1) & inter1.view(1, W, 1) &
+             inter1.view(1, 1, W)).reshape(1, W, W * W)
+    return (obs & ~fixed & inter).flatten(1).sum(1)
+
+
+def k3_ops(e3, enc, nsl, upd, lk, stats):
+    """f32 operations this run's K3 loop needs: for each sweep, the rows it
+    computes (the updatable rows of its active slabs), with the scans on
+    the sweeps that take them. The gates are replayed with the twin: the
+    slabs that changed in sweep s come from its fields after s - 1 and s
+    sweeps (interiors, by more than eps_conv), and loop_gates_ref gives the
+    next sweep's active slabs. Their count must equal the kernel's
+    computed_slabs."""
+    from taichislam_tpu_torch.ops.kernels import esdf_sweep as ks
+    V = lk["V"]
+    W = V + 2
+    sweeps, _, comp, _ = (int(x) for x in stats.tolist())
+    n_upd = updating_voxels(enc, V, lk["gamma"])
+    updr = upd != 0
+    acts, _ = ks.loop_gates_ref(nsl, upd)
+    prev = e3.view(-1, W, W, W)[:, 1:-1, 1:-1, 1:-1]
+    ops = n_comp = 0
+    for s in range(sweeps):
+        scans = s < lk["scan_sweeps"] or (lk["scan_period"] > 0 and
+                                          s % lk["scan_period"] == 0)
+        rows = acts.repeat_interleave(8) & updr
+        n_comp += int(acts.sum())
+        nv = n_upd[rows]
+        ops += int(rows.sum()) * sweep_row_ops(V, 0, scans) + \
+            int(nv.sum()) * (35 + int(scans))
+        fld, _ = ks.esdf_sweep_loop_ref(e3, enc, nsl, upd,
+                                        **dict(lk, max_sweeps=s + 1))
+        cur = fld.view(-1, W, W, W)[:, 1:-1, 1:-1, 1:-1]
+        chg = ((cur - prev).abs() > float(np.float32(lk["eps_conv"])))
+        slabchg = chg.flatten(1).any(1).view(-1, 8).any(1)
+        acts, _ = ks.loop_gates_ref(nsl, upd, slabchg)
+        prev = cur
+    require(n_comp == comp, f"K3 op count: {n_comp} computed slabs replayed "
+            f"against the kernel's {comp}")
+    return ops
+
+
+def profile_call(fn):
+    """torch.profiler over one call of ``fn`` (warmed): the CUDA kernels by
+    name with their counts and device ms, and the aten ops other than
+    allocation."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels, aten = {}, {}
+    for a in prof.key_averages():
+        if a.device_type == torch.autograd.DeviceType.CUDA:
+            n, us = kernels.get(a.key, (0, 0.0))
+            kernels[a.key] = (n + a.count, us + a.device_time_total)
+        elif a.key.startswith("aten::") and a.key not in ALLOC_OPS:
+            aten[a.key] = a.count
+    return kernels, aten
+
+
+ALLOC_OPS = ("aten::empty", "aten::empty_like", "aten::empty_strided")
+
+
+def profile_line(tag, fn, ms, prefix):
+    """Print the kernels of one call (count and device ms by name) beside
+    its event time; require that the call ran only kernels whose names hold
+    ``prefix`` and no aten op other than allocation."""
+    kernels, aten = profile_call(fn)
+    short = {}
+    for k, (n, us) in kernels.items():
+        k = k.replace("void ", "").replace("(anonymous namespace)::", "")
+        k = k.split("(")[0].split("<")[0]
+        n0, us0 = short.get(k, (0, 0.0))
+        short[k] = (n0 + n, us0 + us)
+    n_k = sum(n for n, _ in short.values())
+    dev_ms = sum(us for _, us in short.values()) / 1000.0
+    parts = ", ".join(f"{k} {n}x {us / 1000.0:.4f} ms"
+                      for k, (n, us) in short.items())
+    log(f"[phase2] {tag} profiler: {n_k} CUDA kernels per call ({parts}), "
+        f"device {dev_ms:.4f} ms beside event {ms:.4f} ms; aten ops besides "
+        f"allocation {aten or 'none'}")
+    require(kernels and all(prefix in k for k in kernels),
+            f"{tag}: kernels outside csrc/ {list(kernels)}")
+    require(not aten, f"{tag}: aten ops on the kernel path {aten}")
+    return n_k
+
+
+def k1_bytes(bkey, n_vals, max_touched, V3, max_bkey):
+    """K1's bytes: bkey and intra of every lane and the values of the valid
+    lanes in (k1_prepare reads no value of an invalid lane); touched, the
+    tiles and the two counts out."""
+    from taichislam_tpu_torch.ops.kernels import seg_accum as k1
+    n_valid = int((bkey < k1._key_bound(max_bkey)).sum())
+    return (bkey.numel() * 8 + n_valid * 4 * n_vals +
+            max_touched * (4 + 4 * n_vals * V3) + 8)
+
+
+def k1_library(name, args, kw, dev):
+    """(label, ms) of one PyTorch call beside K1: at the presorted bins
+    sites ``index_add_`` computes the whole tile; at the
+    march and fusion sites ``torch.sort`` of the u32 packed keys (as int32)
+    is only the sort, K1's first stage."""
+    import torch
+    bkey, intra, vals = args
+    V3 = kw["V3"]
+    if kw.get("presorted"):
+        ok = bkey < 2 ** 24
+        v = torch.where(ok[None, :], torch.stack(vals), 0.0)
+        idx = torch.where(ok, intra, 0).long()
+        acc = torch.zeros((len(vals), V3), device=dev)
+        return "index_add_ (the whole tile)", cuda_ms(
+            lambda: acc.index_add_(1, idx, v), 20)
+    key = torch.where(bkey < 2 ** 24, bkey * V3 + intra,
+                      torch.full_like(bkey, 2 ** 30))
+    return "torch.sort of the int32 keys (the sort alone)", cuda_ms(
+        lambda: torch.sort(key, stable=True), 5 if name == "fusion" else 20)
+
 
 def check_seg_accum(dev, results):
     import torch
     from taichislam_tpu_torch.ops.kernels import seg_accum as k1
+    from kernel_ab import k1_cap_case, k1_cases
 
-    rng = np.random.default_rng(1)
-    sites = []
-    # march site: keys over 2197 blocks x 4096 voxels, 60 x 8192 lanes,
-    # 10% invalid, f16-rounded pair of values, lane cap 524288
-    n = 60 * 8192
-    bkey = rng.integers(0, 2197, n).astype(np.int32)
-    bkey[rng.random(n) < 0.1] = k1.SENTINEL_BLOCK
-    intra = rng.integers(0, 4096, n).astype(np.int32)
-    vals = [rng.random(n, dtype=np.float32) * 50,
-            rng.standard_normal(n).astype(np.float32) * 5]
-    sites.append(("march", bkey, intra, vals,
-                  dict(V3=4096, max_touched=256, lane_cap=524288,
-                       vals_f16=True)))
-    # bins site: one block of V3 = 8192 bins, presorted ranks, 5 values
-    n = 76800
-    rank = np.sort(rng.integers(0, 9000, n)).astype(np.int32)
-    _, rank = np.unique(rank, return_inverse=True)
-    rank = rank.astype(np.int32)
-    ok = rank < 8192
-    bkey = np.where(ok, 0, k1.SENTINEL_BLOCK).astype(np.int32)
-    intra = np.where(ok, rank, 0).astype(np.int32)
-    vals = [np.ones(n, np.float32)] + [rng.standard_normal(n).astype(
-        np.float32) for _ in range(4)]
-    sites.append(("bins", bkey, intra, vals,
-                  dict(V3=8192, max_touched=1, presorted=True)))
-    # textured march site at the node's shape: 102 steps x 6144 bins over
-    # a 100 x 10 m map's blocks; Σw, Σw·d and three Σw·c, pairs f16-rounded
-    n = 102 * 6144
-    blocks = rng.choice(125 * 125 * 13, 700, replace=False)
-    bkey = blocks[rng.integers(0, 700, n)].astype(np.int32)
-    bkey[rng.random(n) < 0.3] = k1.SENTINEL_BLOCK
-    intra = rng.integers(0, 4096, n).astype(np.int32)
-    w = rng.random(n, dtype=np.float32) * 10
-    vals = [w, w * rng.standard_normal(n).astype(np.float32)] + [
-        w * rng.random(n, dtype=np.float32) for _ in range(3)]
-    sites.append(("march5", bkey, intra, vals,
-                  dict(V3=4096, max_touched=1024, vals_f16=True)))
-    # textured bins site: count, px, py, pz, depth, r, g, b
-    n = 76800
-    rank = np.sort(rng.integers(0, 9000, n)).astype(np.int32)
-    _, rank = np.unique(rank, return_inverse=True)
-    ok = rank < 8192
-    bkey = np.where(ok, 0, k1.SENTINEL_BLOCK).astype(np.int32)
-    intra = np.where(ok, rank, 0).astype(np.int32)
-    vals = [np.ones(n, np.float32)] + [rng.standard_normal(n).astype(
-        np.float32) for _ in range(4)] + [
-        rng.uniform(0, 255, n).astype(np.float32) for _ in range(3)]
-    sites.append(("bins8", bkey, intra, vals,
-                  dict(V3=8192, max_touched=1, presorted=True)))
-
-    err = 0.0
-    for name, bkey, intra, vals, kw in sites:
+    err, shapes = 0.0, []
+    for name, bkey, intra, vals, kw, mb in k1_cases():
         args = (torch.from_numpy(bkey).to(dev),
                 torch.from_numpy(intra).to(dev),
                 [torch.from_numpy(v).to(dev) for v in vals])
-        got = k1.segmented_block_reduce(*args, **kw)
+        kw = dict(kw, max_bkey=mb)
+        got = k1.segmented_block_reduce(*args, site="check", **kw)
+        again = k1.segmented_block_reduce(*args, site="check", **kw)
         want = k1.segmented_block_reduce_ref(*args, **kw)
         torch.cuda.synchronize()
         require(torch.equal(got[0], want[0]), f"K1 {name}: touched keys")
         require(int(got[2]) == int(want[2]), f"K1 {name}: n_touched")
         require(int(got[3]) == int(want[3]), f"K1 {name}: lanes_dropped")
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"K1 {name}: two calls differ")
         e = float((got[1] - want[1]).abs().max())
         torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-5)
         err = max(err, e)
-        ms = cuda_ms(lambda: k1.segmented_block_reduce(*args, **kw), 20)
-        pms = cuda_ms(lambda: k1.segmented_block_reduce_ref(*args, **kw), 20)
-        log(f"[phase2] K1 {name}: n_touched {int(got[2])} max_abs_err {e} "
-            f"ms {ms:.4f} plain_ms {pms:.4f}")
-        if name == "march":
-            results["K1"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
-    results["K1"]["max_abs_err"] = err
+        reps = 5 if name == "fusion" else 20
+        ms = cuda_ms(lambda: k1.segmented_block_reduce(*args, site="check",
+                                                       **kw), reps)
+        pms = cuda_ms(lambda: k1.segmented_block_reduce_ref(*args, **kw),
+                      3 if name == "fusion" else 20)
+        N, nv = len(bkey), len(vals)
+        b_ms, b_by = bound(k1_bytes(args[0], nv, kw["max_touched"], kw["V3"],
+                                    mb))
+        label, lib_ms = k1_library(name, args, kw, dev)
+        log(f"[phase2] K1 {name}: {N} lanes, {nv} values, n_touched "
+            f"{int(got[2])}, lanes_dropped {int(got[3])}, max_abs_err {e}, "
+            f"two calls bit-identical; ms {ms:.4f} plain_ms {pms:.4f} "
+            f"bound_ms {b_ms:.4f} ({b_by}) library_ms {lib_ms:.4f} "
+            f"[{label}]")
+        n_k = profile_line(f"K1 {name}", lambda: k1.segmented_block_reduce(
+            *args, site="check", **kw), ms, "k1_")
+        shapes.append(dict(shape=name, lanes=N, n_vals=nv, ms=ms,
+                           plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                           library_ms=lib_ms, library_call=label,
+                           kernels_per_call=n_k, max_abs_err=e))
+        del args, got, again, want
+    check_seg_accum_cap(dev, k1_cap_case())
+    march = shapes[0]
+    results["K1"] = dict(max_abs_err=err, ms=march["ms"],
+                         plain_ms=march["plain_ms"],
+                         bound_ms=march["bound_ms"],
+                         bound_by=march["bound_by"], library_ms=None,
+                         shapes=shapes)
 
 
-def _sweep_fields(rng, N, V, n_upd):
-    """Random halo-assembled fields in the sweep layout: participating
-    voxels with TSDF in [-0.4, 0.4], a field near the seeds, an
-    interior-only side mask consistent with the encoding."""
+def check_seg_accum_cap(dev, case):
+    """K1 where the lane cap cuts inside a block and some block keys lie at
+    or past max_bkey: touched keys, n_touched, lanes_dropped (> 0) and the
+    tiles as the twin gives them."""
     import torch
-    W = V + 2
-    tsdf = rng.uniform(-0.4, 0.4, (N, W, W * W)).astype(np.float32)
-    part = rng.random((N, W, W * W)) < 0.85
-    enc = np.where(part, tsdf, 1e6).astype(np.float32)
-    esdf = (tsdf + rng.uniform(-0.3, 0.3, tsdf.shape)).astype(np.float32)
-    c = np.arange(W)
-    inter1 = (c >= 1) & (c <= V)
-    inter = (inter1[:, None, None] & inter1[None, :, None] &
-             inter1[None, None, :]).reshape(1, W, W * W)
-    fixed = part & (np.abs(tsdf) < 0.05)
-    upd = (np.arange(N) < n_upd)[:, None, None]
-    side = np.where(part & ~fixed & inter & upd,
-                    np.where(tsdf >= 0, 1, -1), 0).astype(np.int8)
-    enc[-1] = 1e6   # garbage row: never a source
-    esdf[-1] = 0.0
-    return [torch.from_numpy(a) for a in (esdf, enc, side)]
+    from taichislam_tpu_torch.ops.kernels import seg_accum as k1
+    bkey, intra, vals, kw, mb = case
+    args = (torch.from_numpy(bkey).to(dev), torch.from_numpy(intra).to(dev),
+            [torch.from_numpy(v).to(dev) for v in vals])
+    kw = dict(kw, max_bkey=mb)
+    got = k1.segmented_block_reduce(*args, site="check", **kw)
+    want = k1.segmented_block_reduce_ref(*args, **kw)
+    torch.cuda.synchronize()
+    require(torch.equal(got[0], want[0]), "K1 cap: touched keys")
+    require(int(got[2]) == int(want[2]), "K1 cap: n_touched")
+    require(int(got[3]) == int(want[3]) > 0,
+            f"K1 cap: lanes_dropped {int(got[3])} vs {int(want[3])}")
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-5)
+    e = float((got[1] - want[1]).abs().max())
+    log(f"[phase2] K1 lane cap {kw['lane_cap']} inside a block, max_bkey "
+        f"{mb}: n_touched {int(got[2])}, lanes_dropped {int(got[3])}, "
+        f"max_abs_err {e}, as the twin")
 
 
 def check_esdf(dev, results):
     import torch
     from taichislam_tpu_torch.ops.kernels import esdf_sweep as ks
+    from kernel_ab import K2_ROWS, SWEEP_KW, k2_case, k3_case
 
-    V, N, n_upd = 16, 264, 200
-    rng = np.random.default_rng(2)
-    esdf, enc, side = (t.to(dev) for t in _sweep_fields(rng, N, V, n_upd))
-    kw = dict(V=V, v1=0.05, gamma=0.05, eps=0.025, max_ray=3.0)
-    slab_act = torch.from_numpy((rng.random(N // 8) < 0.8).astype(
-        np.int32)).to(dev)
-    err2, times = 0.0, {}
+    kw = SWEEP_KW
+    V = kw["V"]
+    W3 = (V + 2) ** 3
+    esdf, enc, side, slab_act = (torch.from_numpy(a).to(dev)
+                                 for a in k2_case())
+    N = K2_ROWS
+    err2, k2 = 0.0, {}
     for scans in (False, True):
         got = ks.esdf_sweep(esdf, enc, side, slab_act, with_scans=scans, **kw)
         want = ks.esdf_sweep_ref(esdf, enc, side, slab_act, with_scans=scans,
@@ -210,52 +364,75 @@ def check_esdf(dev, results):
         e = float((got - want).abs().max())
         require(e <= 1e-6, f"K2 scans={scans}: max abs err {e}")
         err2 = max(err2, e)
-        times[scans] = (
-            cuda_ms(lambda: ks.esdf_sweep(esdf, enc, side, slab_act,
-                                          with_scans=scans, **kw), 20),
-            cuda_ms(lambda: ks.esdf_sweep_ref(esdf, enc, side, slab_act,
-                                              with_scans=scans, **kw), 5))
-        log(f"[phase2] K2 scans={scans}: max_abs_err {e} ms "
-            f"{times[scans][0]:.4f} plain_ms {times[scans][1]:.4f}")
-    results["K2"] = dict(max_abs_err=err2, ms=times[True][0],
-                         plain_ms=times[True][1])
+        ms = cuda_ms(lambda: ks.esdf_sweep(esdf, enc, side, slab_act,
+                                           with_scans=scans, **kw), 20)
+        pms = cuda_ms(lambda: ks.esdf_sweep_ref(esdf, enc, side, slab_act,
+                                                with_scans=scans, **kw), 5)
+        # every row of an active slab runs the sweep; its voxels with a
+        # side update
+        rows = slab_act.repeat_interleave(8) != 0
+        n_upd = int((side != 0).flatten(1).sum(1)[rows].sum())
+        b_ms, b_by = bound(N * W3 * 13 + N // 8 * 4,
+                           int(rows.sum()) * sweep_row_ops(V, 0, scans) +
+                           n_upd * (35 + int(scans)))
+        log(f"[phase2] K2 scans={scans}: max_abs_err {e} ms {ms:.4f} "
+            f"plain_ms {pms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms "
+            f"none (no single PyTorch call computes it)")
+        n_k = profile_line(f"K2 scans={scans}", lambda: ks.esdf_sweep(
+            esdf, enc, side, slab_act, with_scans=scans, **kw), ms, "k2_")
+        k2[scans] = dict(ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                         kernels_per_call=n_k)
+    results["K2"] = dict(max_abs_err=err2, library_ms=None, **k2[True])
 
-    # K3: a random 27-neighbour table over the 257 used rows (garbage row
-    # 256 = cap), rows past the garbage row padding
-    cap = 256
-    nsl = rng.integers(0, cap + 1, (27, N)).astype(np.int32)
-    nsl[13] = np.minimum(np.arange(N), cap)
-    nsl[:, cap:] = cap
-    nsl = torch.from_numpy(nsl).to(dev)
-    upd = torch.from_numpy((np.arange(N) < n_upd).astype(np.int32)).to(dev)
-    # enc of the garbage and pad rows must be ENC_BIG
-    enc3 = enc.clone()
-    enc3[cap:] = 1e6
-    esdf = esdf.clone()
-    esdf[cap:] = 0.0
-    err3 = 0.0
-    for budget in (3, 32):
-        lk = dict(kw, eps_conv=2e-3, max_sweeps=budget, scan_sweeps=1,
-                  scan_period=0)
-        got, gst = ks.esdf_sweep_loop(esdf, enc3, nsl, upd, **lk)
-        want, wst = ks.esdf_sweep_loop_ref(esdf, enc3, nsl, upd, **lk)
-        require(torch.equal(gst.cpu(), wst.cpu()),
-                f"K3 budget {budget}: stats {gst.tolist()} vs {wst.tolist()}")
-        e = float((got - want).abs().max())
-        require(e <= 1e-6, f"K3 budget {budget}: max abs err {e}")
-        rows_g = ((got - esdf).abs() > 2e-3).flatten(1).any(1)
-        rows_w = ((want - esdf).abs() > 2e-3).flatten(1).any(1)
-        require(torch.equal(rows_g, rows_w), f"K3 budget {budget}: rows")
-        err3 = max(err3, e)
-        ms = cuda_ms(lambda: ks.esdf_sweep_loop(esdf, enc3, nsl, upd, **lk),
-                     10)
-        pms = cuda_ms(lambda: ks.esdf_sweep_loop_ref(esdf, enc3, nsl, upd,
-                                                     **lk), 3)
-        log(f"[phase2] K3 budget {budget}: stats {gst.tolist()} "
-            f"max_abs_err {e} ms {ms:.4f} plain_ms {pms:.4f}")
-        if budget == 3:
-            results["K3"] = dict(max_abs_err=err3, ms=ms, plain_ms=pms)
-    results["K3"]["max_abs_err"] = err3
+    # K3 at the bench's 264 rows and at 1056 rows (more rows than CTAs fit
+    # on the card at once, so CTAs take rows by grid stride)
+    err3, shapes = 0.0, []
+    for n_rows in (K2_ROWS, 4 * K2_ROWS):
+        e3, n3, nsl, upd = (torch.from_numpy(a).to(dev)
+                            for a in k3_case(n_rows))
+        for budget in (3, 32):
+            lk = dict(kw, eps_conv=2e-3, max_sweeps=budget, scan_sweeps=1,
+                      scan_period=0)
+            got, gst = ks.esdf_sweep_loop(e3, n3, nsl, upd, **lk)
+            want, wst = ks.esdf_sweep_loop_ref(e3, n3, nsl, upd, **lk)
+            require(torch.equal(gst.cpu(), wst.cpu()),
+                    f"K3 {n_rows} rows budget {budget}: stats "
+                    f"{gst.tolist()} vs {wst.tolist()}")
+            e = float((got - want).abs().max())
+            require(e <= 1e-6, f"K3 {n_rows} rows budget {budget}: max abs "
+                    f"err {e}")
+            rows_g = ((got - e3).abs() > 2e-3).flatten(1).any(1)
+            rows_w = ((want - e3).abs() > 2e-3).flatten(1).any(1)
+            require(torch.equal(rows_g, rows_w),
+                    f"K3 {n_rows} rows budget {budget}: rows")
+            err3 = max(err3, e)
+            ms = cuda_ms(lambda: ks.esdf_sweep_loop(e3, n3, nsl, upd, **lk),
+                         10)
+            pms = cuda_ms(lambda: ks.esdf_sweep_loop_ref(e3, n3, nsl, upd,
+                                                         **lk), 3)
+            sweeps = int(gst[0])
+            b_ms, b_by = bound(n_rows * W3 * 12 + n_rows * 27 * 4 +
+                               n_rows * 4 + 16,
+                               k3_ops(e3, n3, nsl, upd, lk, gst))
+            log(f"[phase2] K3 {n_rows} rows budget {budget}: stats "
+                f"{gst.tolist()} max_abs_err {e} ms {ms:.4f} plain_ms "
+                f"{pms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms none "
+                f"(no single PyTorch call computes it)")
+            n_k = profile_line(
+                f"K3 {n_rows} rows budget {budget}",
+                lambda: ks.esdf_sweep_loop(e3, n3, nsl, upd, **lk), ms,
+                "k3_loop_kernel")
+            require(n_k == 1, f"K3: {n_k} kernels in one call")
+            shapes.append(dict(shape=f"{n_rows} rows budget {budget}",
+                               sweeps=sweeps, ms=ms, plain_ms=pms,
+                               bound_ms=b_ms, bound_by=b_by,
+                               kernels_per_call=n_k, max_abs_err=e))
+    first = shapes[0]
+    results["K3"] = dict(max_abs_err=err3, ms=first["ms"],
+                         plain_ms=first["plain_ms"],
+                         bound_ms=first["bound_ms"],
+                         bound_by=first["bound_by"], library_ms=None,
+                         shapes=shapes)
 
 
 # ---------------------------------------------------------------------------
@@ -823,22 +1000,30 @@ def check_seg_accum_fusion(dev, sm, results):
                                        *gm._bases())
     bkey, intra, vals = fusion_ops.reduce_lanes(glob_cfg, c)
     del c
-    args = (bkey, intra, vals, glob_cfg.grid.voxels_per_block,
+    gspec = glob_cfg.grid
+    args = (bkey, intra, vals, gspec.voxels_per_block,
             glob_cfg.max_touched_blocks)
-    got = k1.segmented_block_reduce(*args, site="check")
-    want = k1.segmented_block_reduce_ref(*args)
+    mb = dict(max_bkey=gspec.num_submaps * gspec.blocks_per_submap)
+    got = k1.segmented_block_reduce(*args, site="check", **mb)
+    want = k1.segmented_block_reduce_ref(*args, **mb)
     torch.cuda.synchronize()
     require(torch.equal(got[0], want[0]), "K1 fusion: touched keys")
     require(int(got[2]) == int(want[2]), "K1 fusion: n_touched")
     torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-5)
     e = float((got[1] - want[1]).abs().max())
-    ms = cuda_ms(lambda: k1.segmented_block_reduce(*args, site="check"), 5)
-    pms = cuda_ms(lambda: k1.segmented_block_reduce_ref(*args), 3)
-    log(f"[phase2] K1 fusion: {bkey.numel()} lanes (bcap {bcap}), 6 values, "
-        f"n_touched {int(got[2])} max_abs_err {e} ms {ms:.4f} plain_ms "
-        f"{pms:.4f}")
+    ms = cuda_ms(lambda: k1.segmented_block_reduce(*args, site="check",
+                                                   **mb), 5)
+    pms = cuda_ms(lambda: k1.segmented_block_reduce_ref(*args, **mb), 3)
+    b_ms, b_by = bound(k1_bytes(bkey, len(vals), args[4], args[3],
+                                mb["max_bkey"]))
+    label, lib_ms = k1_library("fusion", args[:3], dict(V3=args[3]), dev)
+    log(f"[phase2] K1 fusion (a full refuse's lanes): {bkey.numel()} lanes "
+        f"(bcap {bcap}), {len(vals)} values, n_touched {int(got[2])} of "
+        f"{args[4]}, max_abs_err {e} ms {ms:.4f} plain_ms {pms:.4f} "
+        f"bound_ms {b_ms:.4f} ({b_by}) library_ms {lib_ms:.4f} [{label}]")
     results["K1"].update(fusion_max_abs_err=e, fusion_ms=ms,
-                         fusion_plain_ms=pms, fusion_lanes=bkey.numel())
+                         fusion_plain_ms=pms, fusion_lanes=bkey.numel(),
+                         fusion_bound_ms=b_ms, fusion_library_ms=lib_ms)
     results["K1"]["max_abs_err"] = max(results["K1"]["max_abs_err"], e)
 
 

@@ -28,16 +28,23 @@
 //   library is built with --fmad=false so none of these contract into FMAs.
 // - Only interior voxels are updated; halo positions pass through (the
 //   side mask is interior-only by contract).
-// - K3 keeps the loop kernel's semantics but not its single launch: one SM
-//   cannot hold the field resident as the TPU's VMEM did. Each sweep is
-//   three shell kernels (i, j, k pass), the row kernel and a one-CTA update
-//   of the gates. Within a pass, reads touch i (or j, k) in {1, V} and
-//   writes touch {0, V+1}, so rows run in parallel exactly. A device-side
-//   `quiet` flag turns the remaining launches into no-ops, so the host
-//   issues max_sweeps sweeps without synchronising.
+// - K3 is one persistent cooperative launch, as the TPU kernel is one call
+//   with a real early exit. One SM cannot hold the field resident as the
+//   TPU's VMEM did, so the field stays in device memory (L2-resident at the
+//   main path's sizes) and the grid runs every sweep itself: shell i, j, k
+//   passes, the row compute and the gate update, a grid barrier after each.
+//   It leaves the loop after the first sweep that changes nothing, so no
+//   launch runs as a no-op. The grid is the rows or, if fewer, the CTAs
+//   that fit on the card at once (2 per SM at V = 16); CTAs take rows and
+//   slabs by grid stride. The slab gates are derived in sparse form from
+//   the 27-neighbour table (one CTA per slab), equal to the TPU's dense
+//   adjacency products without their O(n_slab^2) tables.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -230,19 +237,22 @@ __global__ void k2_kernel(const float* esdf, const float* enc,
             with_scans != 0, 0.0f, nullptr);
 }
 
-// ---- K3: per-sweep pieces of the loop --------------------------------------
-// st: [quiet, changed_this_sweep, sweeps_run, computed_slabs, shell_rows]
+// ---- K3: the sweep loop in one cooperative launch --------------------------
+// Each CTA takes rows (and slabs) by grid stride inside every phase; a grid
+// barrier separates the phases. Gate state in `ws` (int32):
+//   acts[n_slab] | shell[2][n_slab] | chg[2][n_slab] | changed[2]
+// The shell and chg buffers alternate by sweep parity, so a buffer is zeroed
+// for the next sweep while the current one is read.
 
-__global__ void shell_i_kernel(float* fld, const int32_t* nsl, int n_rows,
-                               const int32_t* st, const int32_t* shellact,
-                               int32_t* shell_rows, int V) {
-  const int g = blockIdx.x;
-  if (st[0] || !shellact[g / 8]) return;
-  if (threadIdx.x == 0) atomicAdd(shell_rows, 1);
+// halo-shell passes: within a pass, reads touch i (or j, k) in {1, V} of the
+// neighbour rows and writes touch {0, V+1} of this row, so rows run in
+// parallel exactly
+__device__ void shell_i_row(float* fld, const int32_t* nsl, int n_rows, int g,
+                            int V) {
   const int W = V + 2, W2 = W * W;
   const size_t W3 = (size_t)W2 * W;
-  const float* im = fld + nsl[0 * n_rows + g] * W3;
-  const float* ip = fld + nsl[1 * n_rows + g] * W3;
+  const float* im = fld + nsl[4 * n_rows + g] * W3;
+  const float* ip = fld + nsl[22 * n_rows + g] * W3;
   float* row = fld + g * W3;
   for (int t = threadIdx.x; t < W2; t += blockDim.x) {
     int j = t / W, k = t - j * W;
@@ -251,15 +261,12 @@ __global__ void shell_i_kernel(float* fld, const int32_t* nsl, int n_rows,
   }
 }
 
-__global__ void shell_j_kernel(float* fld, const int32_t* nsl, int n_rows,
-                               const int32_t* st, const int32_t* shellact,
-                               int V) {
-  const int g = blockIdx.x;
-  if (st[0] || !shellact[g / 8]) return;
+__device__ void shell_j_row(float* fld, const int32_t* nsl, int n_rows, int g,
+                            int V) {
   const int W = V + 2, W2 = W * W;
   const size_t W3 = (size_t)W2 * W;
-  const float* jm = fld + nsl[2 * n_rows + g] * W3;
-  const float* jp = fld + nsl[3 * n_rows + g] * W3;
+  const float* jm = fld + nsl[10 * n_rows + g] * W3;
+  const float* jp = fld + nsl[16 * n_rows + g] * W3;
   float* row = fld + g * W3;
   for (int t = threadIdx.x; t < W2; t += blockDim.x) {
     row[t] = jm[V * W2 + t];
@@ -267,15 +274,12 @@ __global__ void shell_j_kernel(float* fld, const int32_t* nsl, int n_rows,
   }
 }
 
-__global__ void shell_k_kernel(float* fld, const int32_t* nsl, int n_rows,
-                               const int32_t* st, const int32_t* shellact,
-                               int V) {
-  const int g = blockIdx.x;
-  if (st[0] || !shellact[g / 8]) return;
+__device__ void shell_k_row(float* fld, const int32_t* nsl, int n_rows, int g,
+                            int V) {
   const int W = V + 2, W2 = W * W;
   const size_t W3 = (size_t)W2 * W;
-  const float* km = fld + nsl[4 * n_rows + g] * W3;
-  const float* kp = fld + nsl[5 * n_rows + g] * W3;
+  const float* km = fld + nsl[12 * n_rows + g] * W3;
+  const float* kp = fld + nsl[14 * n_rows + g] * W3;
   float* row = fld + g * W3;
   for (int t = threadIdx.x; t < W2; t += blockDim.x) {
     int base = t * W;  // (j, i) = (t / W, t % W)
@@ -284,51 +288,112 @@ __global__ void shell_k_kernel(float* fld, const int32_t* nsl, int n_rows,
   }
 }
 
-__global__ void loop_compute_kernel(float* fld, const float* enc,
-                                    const int32_t* upd, int32_t* st,
-                                    const int32_t* acts, int32_t* slabchg,
-                                    Params p, int with_scans,
-                                    float eps_conv) {
-  const int g = blockIdx.x;
-  const int slab = g / 8;
-  if (st[0] || !acts[slab]) return;
-  if (threadIdx.x == 0 && g % 8 == 0) atomicAdd(&st[3], 1);
-  if (!upd[g]) return;  // side is zero on the whole row: a pass-through
-  const int W = p.V + 2;
-  const size_t off = (size_t)g * W * W * W;
-  __shared__ int changed;
-  sweep_row(fld + off, enc + off, nullptr, true, fld + off, false, p,
-            with_scans != 0, eps_conv, &changed);
-  if (threadIdx.x == 0 && changed) {
-    slabchg[slab] = 1;
-    st[1] = 1;
+// Slab gates in sparse form, one CTA per slab m: acts[m] is the OR, over the
+// updatable rows of m and their 27 neighbours, of chg[slab(nbr)] (every slab
+// counts as changed when chg is null: the initial gates); for an active m,
+// every row of m marks the slabs of its 27 neighbours in `shell`.
+__device__ void gate_slabs(const int32_t* nsl, const int32_t* upd,
+                           const int32_t* chg, int32_t* acts, int32_t* shell,
+                           int n_rows, int n_slab) {
+  const int t = threadIdx.x;
+  const bool lane = t < 8 * 27;
+  for (int m = blockIdx.x; m < n_slab; m += gridDim.x) {
+    int nbr_slab = 0;
+    bool hit = false;
+    if (lane) {
+      const int g = m * 8 + t / 27, c = t % 27;
+      nbr_slab = nsl[c * n_rows + g] / 8;
+      hit = upd[g] != 0 && (chg == nullptr || chg[nbr_slab] != 0);
+    }
+    const int a = __syncthreads_or(hit);
+    if (t == 0) acts[m] = a;
+    if (a && lane) shell[nbr_slab] = 1;
   }
 }
 
-__global__ void loop_update_kernel(int32_t* st, int32_t* slabchg,
-                                   int32_t* acts, int32_t* shellact,
-                                   const int32_t* adj, const int32_t* adjS,
-                                   int n_slab) {
-  if (st[0]) return;
-  for (int m = threadIdx.x; m < n_slab; m += blockDim.x) {
-    int a = 0;
-    for (int m2 = 0; m2 < n_slab; ++m2)
-      a |= slabchg[m2] & adj[m * n_slab + m2];
-    acts[m] = a;
+__global__ void __launch_bounds__(kThreads, 2) k3_loop_kernel(
+    const float* esdf_in, float* fld, const float* enc, const int32_t* nsl,
+    const int32_t* upd, int32_t* ws, int32_t* stats, int n_rows, Params p,
+    float eps_conv, int max_sweeps, int scan_sweeps, int scan_period) {
+  cg::grid_group grid = cg::this_grid();
+  const int n_slab = n_rows / 8;
+  int32_t* acts = ws;
+  int32_t* shell = ws + n_slab;
+  int32_t* chg = ws + 3 * n_slab;
+  int32_t* changed = ws + 5 * n_slab;
+  const int V = p.V, W = V + 2;
+  const size_t W3 = (size_t)W * W * W;
+  const int64_t gtid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t gstride = (int64_t)gridDim.x * blockDim.x;
+  __shared__ int row_changed;
+
+  // prologue: the field into the output, the gate state and stats zeroed
+  for (int64_t i = gtid; i < (int64_t)n_rows * (int64_t)W3; i += gstride)
+    fld[i] = esdf_in[i];
+  for (int64_t i = gtid; i < 5 * n_slab + 2; i += gstride) ws[i] = 0;
+  if (gtid < 4) stats[gtid] = 0;
+  grid.sync();
+  gate_slabs(nsl, upd, nullptr, acts, shell, n_rows, n_slab);
+  grid.sync();
+
+  int comp = 0, shells = 0;  // this CTA's counts (thread 0)
+  int s = 0;
+  bool quiet = false;
+  while (s < max_sweeps) {
+    const int cur = s & 1, nxt = cur ^ 1;
+    int32_t* sh = shell + cur * n_slab;
+    for (int64_t i = gtid; i < n_slab; i += gstride) {
+      shell[nxt * n_slab + i] = 0;
+      chg[nxt * n_slab + i] = 0;
+    }
+    if (gtid == 0) changed[nxt] = 0;
+    for (int g = blockIdx.x; g < n_rows; g += gridDim.x) {
+      if (!sh[g / 8]) continue;
+      if (threadIdx.x == 0) ++shells;
+      shell_i_row(fld, nsl, n_rows, g, V);
+    }
+    grid.sync();
+    for (int g = blockIdx.x; g < n_rows; g += gridDim.x) {
+      if (sh[g / 8]) shell_j_row(fld, nsl, n_rows, g, V);
+    }
+    grid.sync();
+    for (int g = blockIdx.x; g < n_rows; g += gridDim.x) {
+      if (sh[g / 8]) shell_k_row(fld, nsl, n_rows, g, V);
+    }
+    grid.sync();
+    const bool scans =
+        s < scan_sweeps || (scan_period > 0 && s % scan_period == 0);
+    for (int g = blockIdx.x; g < n_rows; g += gridDim.x) {
+      const int slab = g / 8;
+      if (!acts[slab]) continue;
+      if (threadIdx.x == 0 && g % 8 == 0) ++comp;
+      if (!upd[g]) continue;  // side is zero on the whole row: a pass-through
+      const size_t off = (size_t)g * W3;
+      sweep_row(fld + off, enc + off, nullptr, true, fld + off, false, p,
+                scans, eps_conv, &row_changed);
+      if (threadIdx.x == 0 && row_changed) {
+        chg[cur * n_slab + slab] = 1;
+        changed[cur] = 1;
+      }
+      __syncthreads();  // row_changed is reused by the next row
+    }
+    grid.sync();
+    ++s;
+    if (!changed[cur]) {
+      quiet = true;
+      break;
+    }
+    gate_slabs(nsl, upd, chg + cur * n_slab, acts, shell + nxt * n_slab,
+               n_rows, n_slab);
+    grid.sync();
   }
-  __syncthreads();
-  for (int m = threadIdx.x; m < n_slab; m += blockDim.x) {
-    int a = 0;
-    for (int m2 = 0; m2 < n_slab; ++m2)
-      a |= acts[m2] & adjS[m2 * n_slab + m];
-    shellact[m] = a;
-  }
-  __syncthreads();
-  for (int m = threadIdx.x; m < n_slab; m += blockDim.x) slabchg[m] = 0;
   if (threadIdx.x == 0) {
-    st[2] += 1;
-    st[0] = st[1] == 0;
-    st[1] = 0;
+    if (comp) atomicAdd(&stats[2], comp);
+    if (shells) atomicAdd(&stats[3], shells);
+  }
+  if (gtid == 0) {
+    stats[0] = s;
+    stats[1] = quiet ? 0 : 1;
   }
 }
 
@@ -345,43 +410,60 @@ extern "C" int esdf_sweep_launch(const void* esdf, const void* enc,
                                  float v2, float v3, float gamma, float eps,
                                  float max_ray, int with_scans,
                                  void* stream) {
+  static int cached_V = -1;
   Params p{V, v1, v2, v3, gamma, eps, max_ray};
   size_t smem = smem_bytes(V);
-  cudaError_t e = set_smem((const void*)k2_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
+  if (cached_V != V) {
+    cudaError_t e = set_smem((const void*)k2_kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    cached_V = V;
+  }
   k2_kernel<<<n_rows, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)esdf, (const float*)enc, (const int8_t*)side,
       (const int32_t*)slab_act, (float*)out, p, with_scans);
   return (int)cudaGetLastError();
 }
 
-// one sweep of the loop: shells i, j, k, then compute, then gate update
-extern "C" int esdf_loop_sweep_launch(
-    void* fld, const void* enc, const void* nsl_face, const void* upd,
-    const void* adj, const void* adjS, void* st, void* slabchg, void* acts,
-    void* shellact, int n_rows, int n_slab, int V, float v1, float v2,
-    float v3, float gamma, float eps, float max_ray, float eps_conv,
-    int with_scans, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
+// The whole loop in one cooperative launch on `stream`: grid = the rows or,
+// if fewer, the CTAs that fit on the card at once. The attribute and the
+// occupancy are looked up once per process and V.
+extern "C" int esdf_loop_launch(const void* esdf_in, void* fld,
+                                const void* enc, const void* nsl27,
+                                const void* upd, void* ws, void* stats,
+                                int n_rows, int V, float v1, float v2,
+                                float v3, float gamma, float eps,
+                                float max_ray, float eps_conv, int max_sweeps,
+                                int scan_sweeps, int scan_period,
+                                void* stream) {
+  static int cached_V = -1, cached_ctas = 0;
+  const size_t smem = smem_bytes(V);
+  if (cached_V != V) {
+    cudaError_t e = set_smem((const void*)k3_loop_kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, k3_loop_kernel, kThreads, smem);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+    cached_ctas = per_sm * sms;
+    cached_V = V;
+  }
   Params p{V, v1, v2, v3, gamma, eps, max_ray};
-  int32_t* st_ = (int32_t*)st;
-  const int32_t* nsl = (const int32_t*)nsl_face;
-  const int32_t* sha = (const int32_t*)shellact;
-  shell_i_kernel<<<n_rows, 128, 0, s>>>((float*)fld, nsl, n_rows, st_, sha,
-                                        st_ + 4, V);
-  shell_j_kernel<<<n_rows, 128, 0, s>>>((float*)fld, nsl, n_rows, st_, sha,
-                                        V);
-  shell_k_kernel<<<n_rows, 128, 0, s>>>((float*)fld, nsl, n_rows, st_, sha,
-                                        V);
-  size_t smem = smem_bytes(V);
-  cudaError_t e = set_smem((const void*)loop_compute_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  loop_compute_kernel<<<n_rows, kThreads, smem, s>>>(
-      (float*)fld, (const float*)enc, (const int32_t*)upd, st_,
-      (const int32_t*)acts, (int32_t*)slabchg, p, with_scans, eps_conv);
-  loop_update_kernel<<<1, 256, 0, s>>>(st_, (int32_t*)slabchg,
-                                       (int32_t*)acts, (int32_t*)shellact,
-                                       (const int32_t*)adj,
-                                       (const int32_t*)adjS, n_slab);
-  return (int)cudaGetLastError();
+  int grid = n_rows < cached_ctas ? n_rows : cached_ctas;
+  if (grid < 1) return (int)cudaErrorInvalidValue;
+  const float* a0 = (const float*)esdf_in;
+  float* a1 = (float*)fld;
+  const float* a2 = (const float*)enc;
+  const int32_t* a3 = (const int32_t*)nsl27;
+  const int32_t* a4 = (const int32_t*)upd;
+  int32_t* a5 = (int32_t*)ws;
+  int32_t* a6 = (int32_t*)stats;
+  void* args[] = {&a0, &a1, &a2, &a3, &a4, &a5, &a6, &n_rows, &p,
+                  &eps_conv, &max_sweeps, &scan_sweeps, &scan_period};
+  return (int)cudaLaunchCooperativeKernel((const void*)k3_loop_kernel,
+                                          dim3(grid), dim3(kThreads), args,
+                                          smem, (cudaStream_t)stream);
 }

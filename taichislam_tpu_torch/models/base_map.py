@@ -14,6 +14,18 @@ from taichislam_tpu_torch.core import geometry
 from taichislam_tpu_torch.core.colormap import jet_lut_np
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device a model keeps its state on: ``device`` when one is given,
+    else the CUDA card. Without a card and without a device this raises:
+    the CPU runs only when the caller asks for it."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the models run on the card by "
+                           "default; pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
+
+
 class BaseMap:
     def __init__(self, voxel_scale: float):
         self.voxel_scale = voxel_scale

@@ -9,7 +9,8 @@ JAX package's), the compact submap gather of the voxgraph wire
 (``export_submap_async`` / ``finish_export_submap``), remote submaps in
 descending slots, submap fusion (``fuse_submaps``,
 ``fuse_submaps_incremental``), ``reset`` and the ``init_sphere`` fixture.
-The map state lives on ``device``.
+The map state lives on ``device``: the CUDA card unless the caller passes
+another (``device="cpu"``); with no card and no device it raises.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 
 from taichislam_tpu_torch.core.config import TSDFConfig
 from taichislam_tpu_torch.core.grid import reset_grid
-from taichislam_tpu_torch.models.base_map import BaseMap
+from taichislam_tpu_torch.models.base_map import BaseMap, resolve_device
 from taichislam_tpu_torch.ops import exports as exports_ops
 from taichislam_tpu_torch.ops import fusion as fusion_ops
 from taichislam_tpu_torch.ops import tsdf as tsdf_ops
@@ -64,8 +65,7 @@ class DenseTSDF(BaseMap):
                  max_bins=32768, max_fuse_voxels=1 << 20,
                  storage_dtype="float32", device=None):
         super().__init__(voxel_scale)
-        self.device = torch.device(device) if device is not None else \
-            torch.device("cpu")
+        self.device = resolve_device(device)
         self.cfg = TSDFConfig(
             map_scale=tuple(map_scale), voxel_scale=voxel_scale,
             texture_enabled=texture_enabled,

@@ -14,7 +14,7 @@ import torch
 
 from taichislam_tpu_torch.core.config import OctomapConfig
 from taichislam_tpu_torch.core.grid import reset_grid
-from taichislam_tpu_torch.models.base_map import BaseMap
+from taichislam_tpu_torch.models.base_map import BaseMap, resolve_device
 from taichislam_tpu_torch.models.dense_tsdf import host_export
 from taichislam_tpu_torch.ops import exports as exports_ops
 from taichislam_tpu_torch.ops import occupancy as occ_ops
@@ -29,8 +29,7 @@ class Octomap(BaseMap):
                  recast_step=2, color_same_proj=True, max_blocks=8192,
                  device=None):
         super().__init__(voxel_scale)
-        self.device = torch.device(device) if device is not None else \
-            torch.device("cpu")
+        self.device = resolve_device(device)
         self.cfg = OctomapConfig(
             map_scale=tuple(map_scale), voxel_scale=voxel_scale,
             min_occupy_thres=min_occupy_thres,

@@ -33,6 +33,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from taichislam_tpu_torch.models.base_map import resolve_device
 from taichislam_tpu_torch.models.dense_tsdf import DenseTSDF, bin_bucket_for
 from taichislam_tpu_torch.models.octomap import Octomap
 from taichislam_tpu_torch.ops import exports as exports_ops
@@ -131,7 +132,7 @@ class SubmapMapping:
         # the next fusion is the full reset + refuse-all
         self._fusion_dirty = False
         self._active_in_global = False
-        self.device = device
+        self.device = resolve_device(device)
         self.sub_opts = dict(_MAP_DEFAULTS, map_scale=[10, 10],
                              max_submap_num=1000,
                              **_TYPE_DEFAULTS[submap_type])
@@ -144,7 +145,7 @@ class SubmapMapping:
         self.autosave_path = autosave_path
         self.wire_format = wire_format
         self.submap_collection = self.submap_type(**self.sub_opts,
-                                                  device=device)
+                                                  device=self.device)
         self.global_map = self.create_globalmap(global_opts)
         self.first_init = True
         self.set_exporting_global()

@@ -184,7 +184,8 @@ def fuse_reduce(sub_cfg: TSDFConfig, glob_cfg: TSDFConfig,
     lanes = reduce_lanes(glob_cfg, c)
     del c
     touched, acc, n_touched, _ = segmented_block_reduce(
-        *lanes, V3, glob_cfg.max_touched_blocks, site="fusion")
+        *lanes, V3, glob_cfg.max_touched_blocks,
+        max_bkey=gspec.num_submaps * gspec.blocks_per_submap, site="fusion")
     stats["fuse_tiles_dropped"] = torch.clamp(
         n_touched - glob_cfg.max_touched_blocks, min=0)
     return FuseReduced(touched, acc, stats)

@@ -1,9 +1,11 @@
 """Build the CUDA kernels with nvcc and load them with ctypes.
 
-All ``csrc/*.cu`` files compile into one shared library with a plain C
-interface, at first use, into ``build/kernels/`` at the repository root
-(listed in ``.gitignore``). The file name carries a hash of the sources
-and flags, so an edited source builds anew. Nothing here runs at import.
+Every ``csrc/*.cu`` file compiles to an object with its own nvcc, all
+started together, and the objects link into one shared library with a
+plain C interface, at first use, into ``build/kernels/`` at the repository
+root (listed in ``.gitignore``). The file name carries a hash of the
+sources and flags, so an edited source builds anew. Nothing here runs at
+import.
 """
 
 from __future__ import annotations
@@ -19,19 +21,21 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 P = ctypes.c_void_p
 I32 = ctypes.c_int
 I64 = ctypes.c_int64
 F32 = ctypes.c_float
+PP = ctypes.POINTER(ctypes.c_void_p)
+PI64 = ctypes.POINTER(ctypes.c_int64)
 
 # C entry points: name -> argtypes (every one returns cudaGetLastError())
 SIGNATURES = {
-    "seg_accum_launch": [P, P, P, I64, I32, I32, I64, I32, P, P, P, P, P],
+    "seg_accum_launch": [P, P, PP, PI64, I64, I32, I32, I64, I64, I32, I32,
+                         I64, I32, I32, P, P, P, P, P, I64, P],
     "esdf_sweep_launch": [P] * 5 + [I32] * 2 + [F32] * 6 + [I32, P],
-    "esdf_loop_sweep_launch": [P] * 10 + [I32] * 3 + [F32] * 7 + [I32, P],
+    "esdf_loop_launch": [P] * 7 + [I32] * 2 + [F32] * 7 + [I32] * 3 + [P],
 }
 
 
@@ -63,15 +67,35 @@ def library() -> ctypes.CDLL:
     out = library_path()
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tag = f"{out.stem}.{os.getpid()}"
+        nvcc = _nvcc()
+        objs, jobs = [], []
+        for src in _sources():
+            obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            objs.append(obj)
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in _sources()]]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        (BUILD_DIR / "build.log").write_text(
-            " ".join(cmd) + "\n" + res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stderr[-4000:]}")
+        link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                *map(str, objs)]
+        log, failed = [], []
+        for cmd, proc in jobs:
+            text = proc.communicate()[0]
+            log.append(" ".join(cmd) + "\n" + text)
+            if proc.returncode != 0:
+                failed.append(text[-4000:])
+        if not failed:
+            res = subprocess.run(link, capture_output=True, text=True)
+            log.append(" ".join(link) + "\n" + res.stdout + res.stderr)
+            if res.returncode != 0:
+                failed.append(res.stderr[-4000:])
+        (BUILD_DIR / "build.log").write_text("\n".join(log))
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in SIGNATURES.items():

@@ -220,29 +220,24 @@ esdf_sweep.launches = 0
 _FACE_COLS = (4, 22, 10, 16, 12, 14)  # i-, i+, j-, j+, k-, k+ in nsl27
 
 
-def _loop_tables(nsl27, upd_rows):
-    """Face-neighbour table and slab gates of the loop (wrapper glue).
+def loop_gates_ref(nsl27, upd_rows, slabchg=None):
+    """The loop's slab gates in sparse form: (acts, shellact), (N/8,) bool.
 
-    adj[m, m2] = 1 iff slab m has an updatable row with a 27-neighbour (or
-    itself) in slab m2; adjS[m, m2] = 1 iff any row of slab m does; acts0 =
-    slabs with an updatable row; shell0 = acts0 dilated by adjS."""
+    acts[m] is the OR, over the updatable rows of slab m and their 27
+    neighbours (the row itself included), of slabchg[slab(nbr)]; with
+    ``slabchg`` None every slab counts as changed, which gives the first
+    sweep's gates (the slabs with an updatable row). shellact marks the
+    slabs of the 27 neighbours of every row of an active slab. Equal to the
+    JAX package's dense products over adj / adjS."""
     N = nsl27.shape[1]
-    NSLAB = N // R
-    dev = nsl27.device
-    nsl = nsl27.long()
-    slab_of = torch.arange(N, device=dev) // R
-    nbr_slab = slab_of[nsl]                                    # (27, N)
-    src = torch.where(upd_rows != 0, slab_of,
-                      torch.full_like(slab_of, NSLAB)).expand(27, N)
-    adj = torch.zeros((NSLAB + 1, NSLAB), dtype=torch.bool, device=dev)
-    adj[src, nbr_slab] = True
-    adj = adj[:NSLAB]
-    adjS = torch.zeros((NSLAB, NSLAB), dtype=torch.bool, device=dev)
-    adjS[slab_of.expand(27, N), nbr_slab] = True
-    acts0 = adj.any(dim=1)
-    shell0 = (acts0[:, None] & adjS).any(dim=0)
-    face = torch.stack([nsl27[c] for c in _FACE_COLS]).to(torch.int32)
-    return face, adj, adjS, acts0, shell0
+    nbr_slab = nsl27.long() // R                               # (27, N)
+    hit = torch.ones_like(nbr_slab, dtype=torch.bool) if slabchg is None \
+        else slabchg.bool()[nbr_slab]
+    acts = (hit & (upd_rows != 0)[None, :]).any(dim=0).view(-1, R).any(dim=1)
+    src = acts.repeat_interleave(R)[None, :].expand(27, N)
+    shellact = torch.zeros_like(acts)
+    shellact[nbr_slab[src]] = True
+    return acts, shellact
 
 
 def _scan_pred(s, scan_sweeps, scan_period):
@@ -256,8 +251,8 @@ def esdf_sweep_loop_ref(esdf_h, enc_hh, nsl27, upd_rows, *, V: int,
     """Plain PyTorch version of :func:`esdf_sweep_loop`."""
     N, W = esdf_h.shape[0], V + 2
     dev = esdf_h.device
-    face, adj, adjS, acts, shellact = _loop_tables(nsl27, upd_rows)
-    nsl = face.long()
+    acts, shellact = loop_gates_ref(nsl27, upd_rows)
+    nsl = nsl27[list(_FACE_COLS)].long()
     upd = upd_rows != 0
     fld = esdf_h.clone()
     f4 = fld.view(N, W, W, W)  # (row, j, i, k)
@@ -299,8 +294,7 @@ def esdf_sweep_loop_ref(esdf_h, enc_hh, nsl27, upd_rows, *, V: int,
         fld.copy_(new)
         sweeps += 1
         quiet = not bool(slabchg.any())
-        acts = (slabchg[None, :] & adj).any(dim=1)
-        shellact = (acts[:, None] & adjS).any(dim=0)
+        acts, shellact = loop_gates_ref(nsl27, upd_rows, slabchg)
     stats = torch.tensor([sweeps, 0 if quiet else 1, comp, shells],
                          dtype=torch.int32, device=dev)
     return fld, stats
@@ -314,10 +308,11 @@ def esdf_sweep_loop(esdf_h, enc_hh, nsl27, upd_rows, *, V: int, v1: float,
     ``esdf_h`` needs valid interiors only; ``enc_hh`` is the halo-assembled
     encoded channel; ``nsl27`` the (27, N) int32 compact neighbour table
     (garbage row for missing neighbours, whose enc must be ENC_BIG);
-    ``upd_rows`` the (N,) updatable-row mask. Returns (field, stats) with
+    ``upd_rows`` the (N,) updatable-row mask (on the card both contiguous
+    int32). Returns (field, stats) with
     stats = [sweeps_run, changed_at_exit, computed_slabs, shell_rows]
-    int32. The CUDA path issues every sweep without a host sync: after
-    convergence a device flag turns the remaining launches into no-ops."""
+    int32. On the card the whole loop is one cooperative launch that leaves
+    when a sweep changes nothing."""
     if esdf_h.device.type == "cpu":
         return esdf_sweep_loop_ref(
             esdf_h, enc_hh, nsl27, upd_rows, V=V, v1=v1, gamma=gamma,
@@ -337,30 +332,23 @@ def esdf_sweep_loop(esdf_h, enc_hh, nsl27, upd_rows, *, V: int, v1: float,
             upd_rows.shape != (N,) or upd_rows.device != dev:
         raise ValueError("nsl27 / upd_rows: want (27, N) and (N,) on the "
                          "field's device")
-    lib = build.library()
-    face, adj, adjS, acts0, shell0 = _loop_tables(nsl27, upd_rows)
-    NSLAB = N // R
     i32 = torch.int32
-    adj = adj.to(i32).contiguous()
-    adjS = adjS.to(i32).contiguous()
-    acts = acts0.to(i32).contiguous()
-    shellact = shell0.to(i32).contiguous()
-    upd = (upd_rows != 0).to(i32).contiguous()
-    st = torch.zeros((5,), dtype=i32, device=dev)
-    slabchg = torch.zeros((NSLAB,), dtype=i32, device=dev)
-    fld = esdf_h.clone()
+    if nsl27.dtype != i32 or upd_rows.dtype != i32 or \
+            not (nsl27.is_contiguous() and upd_rows.is_contiguous()):
+        raise ValueError("nsl27 / upd_rows: want contiguous int32")
+    lib = build.library()
+    fld = torch.empty_like(esdf_h)
+    ws = torch.empty((5 * (N // R) + 2,), dtype=i32, device=dev)
+    stats = torch.empty((4,), dtype=i32, device=dev)
     v1f, v2f, v3f, gf, ef, mf = _consts(v1, gamma, eps, max_ray)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    for s in range(max_sweeps):
-        err = lib.esdf_loop_sweep_launch(
-            fld.data_ptr(), enc_hh.data_ptr(), face.data_ptr(),
-            upd.data_ptr(), adj.data_ptr(), adjS.data_ptr(), st.data_ptr(),
-            slabchg.data_ptr(), acts.data_ptr(), shellact.data_ptr(), N,
-            NSLAB, V, v1f, v2f, v3f, gf, ef, mf, _f32(eps_conv),
-            int(_scan_pred(s, scan_sweeps, scan_period)), stream)
-        build.check(err, "esdf_loop_sweep_launch")
+    err = lib.esdf_loop_launch(
+        esdf_h.data_ptr(), fld.data_ptr(), enc_hh.data_ptr(),
+        nsl27.data_ptr(), upd_rows.data_ptr(), ws.data_ptr(),
+        stats.data_ptr(), N, V, v1f, v2f, v3f, gf, ef, mf, _f32(eps_conv),
+        max_sweeps, scan_sweeps, scan_period,
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "esdf_loop_launch")
     esdf_sweep_loop.launches += 1
-    stats = torch.stack([st[2], 1 - st[0], st[3], st[4]]).to(i32)
     return fld, stats
 
 

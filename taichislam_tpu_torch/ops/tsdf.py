@@ -242,7 +242,8 @@ def integrate(cfg: TSDFConfig, state: GridState, bins_pts, z, color, valid,
                 live.shape).reshape(-1), zero) for a in range(3))
     touched_rel, acc, n_touched, lanes_dropped = segmented_block_reduce(
         bkey, intra_k, vals, V3, cfg.max_touched_blocks,
-        lane_cap=(cfg.max_march_lanes or None), vals_f16=True, site="march")
+        lane_cap=(cfg.max_march_lanes or None), vals_f16=True,
+        max_bkey=spec.blocks_per_submap, site="march")
     live_lanes = lane_ok.sum(dtype=torch.int32)
     touched_dropped = torch.clamp(n_touched - cfg.max_touched_blocks, min=0)
 

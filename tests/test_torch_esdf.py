@@ -235,3 +235,48 @@ def test_sweep_twin_matches_pallas_kernel(with_scans):
     assert np.abs(want - got.numpy()).max() <= 1e-6
     assert np.array_equal(want[8:], esdf[8:])   # the idle slab passed
     assert not np.array_equal(want[:8], esdf[:8])
+
+
+def _dense_gates(nsl27, upd_rows, slabchg):
+    """The JAX package's gates (esdf_sweep_loop_pallas): dense slab
+    adjacencies adj (updatable rows) and adjS (all rows), then
+    acts = slabchg . adj^T and shellact = acts . adjS; with slabchg None the
+    first sweep's acts0 = any(adj) and its dilation."""
+    N = nsl27.shape[1]
+    NSLAB = N // 8
+    slab_of = np.arange(N) // 8
+    nbr_slab = slab_of[nsl27]                                  # (27, N)
+    adj = np.zeros((NSLAB, NSLAB), bool)
+    adjS = np.zeros((NSLAB, NSLAB), bool)
+    for c in range(27):
+        adjS[slab_of, nbr_slab[c]] = True
+        u = upd_rows != 0
+        adj[slab_of[u], nbr_slab[c][u]] = True
+    acts = adj.any(axis=1) if slabchg is None else \
+        (slabchg[None, :] & adj).any(axis=1)
+    return acts, (acts[:, None] & adjS).any(axis=0)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_loop_gates_sparse_equal_dense(seed):
+    """K3's sparse gate rule (loop_gates_ref, the rule the kernel runs)
+    equals the dense adj / adjS products on random 27-neighbour tables with
+    a garbage row and padding rows past it, for the first sweep's gates and
+    for random changed-slab sets."""
+    rng = np.random.default_rng(seed)
+    cap = int(rng.integers(20, 60))           # garbage row index
+    N = -(-(cap + 1 + int(rng.integers(0, 20))) // 8) * 8
+    nsl = rng.integers(0, cap + 1, (27, N)).astype(np.int32)
+    nsl[13] = np.minimum(np.arange(N), cap)
+    nsl[rng.random((27, N)) < 0.3] = cap      # missing neighbours
+    nsl[:, cap:] = cap
+    upd = ((rng.random(N) < 0.6) & (np.arange(N) < cap)).astype(np.int32)
+    cases = [None] + [rng.random(N // 8) < p for p in (0.0, 0.1, 0.5)]
+    for chg in cases:
+        want = _dense_gates(nsl, upd, chg)
+        got = tk.loop_gates_ref(
+            torch.from_numpy(nsl), torch.from_numpy(upd),
+            None if chg is None else torch.from_numpy(chg))
+        for a, b in zip(want, got):
+            np.testing.assert_array_equal(a, b.numpy())
+    assert want[1].any() or not upd.any()

@@ -33,6 +33,9 @@ KW = dict(map_scale=(3.2, 3.2), voxel_scale=0.1, num_voxel_per_blk_axis=8,
           disp_ceiling=0.9, disp_floor=-0.4)
 K = np.asarray([20.0, 0, 16.0, 0, 20.0, 12.0, 0, 0, 1], np.float32)
 NB = 4
+# every port model here runs on the CPU, asked for explicitly (the models
+# default to the CUDA card)
+DEV = torch.device("cpu")
 
 
 def _fuse(cfg):
@@ -165,7 +168,7 @@ def test_save_and_load_across_packages(scene, direction, tmp_path):
     kw = dict(map_scale=[3.2, 3.2], voxel_scale=0.1,
               num_voxel_per_blk_axis=8, max_blocks=64, max_submap_num=4,
               texture_enabled=cj.texture_enabled)
-    jm, tm = JMap(**kw), TMap(**kw)
+    jm, tm = JMap(**kw), TMap(**kw, device=DEV)
     jm.state = js
     tm.state = _port_state(js)
     jm.active_submap_id = tm.active_submap_id = 1
@@ -175,10 +178,10 @@ def test_save_and_load_across_packages(scene, direction, tmp_path):
     assert (tmp_path / "jax.npy").read_bytes() == \
         (tmp_path / "port.npy").read_bytes()
     if direction == "jax_to_port":
-        got = TMap.loadMap(str(tmp_path / "jax.npy"))
+        got = TMap.loadMap(str(tmp_path / "jax.npy"), device=DEV)
         want = JMap.loadMap(str(tmp_path / "jax.npy"))
     else:
-        got = TMap.loadMap(str(tmp_path / "port.npy"))
+        got = TMap.loadMap(str(tmp_path / "port.npy"), device=DEV)
         want = JMap.loadMap(str(tmp_path / "port.npy"))
     assert got.count_active() == want.count_active() == \
         int(jx.count_active(cj, js, jnp.int32(1)))
@@ -201,7 +204,7 @@ def test_model_exports_match_jax():
               num_voxel_per_blk_axis=8, max_blocks=64, max_submap_num=4,
               max_ray_length=1.5, texture_enabled=True,
               max_disp_particles=3000, disp_ceiling=0.6)
-    jm, tm = JMap(**kw), TMap(**kw)
+    jm, tm = JMap(**kw), TMap(**kw, device=DEV)
     jm.cfg = dataclasses.replace(jm.cfg, pallas_accum="on")
     rng = np.random.default_rng(12)
     xyz = rng.uniform(-1.0, 1.0, (1500, 3)).astype(np.float32)

@@ -35,6 +35,9 @@ KW = dict(map_scale=(3.2, 3.2), voxel_scale=0.1, num_voxel_per_blk_axis=8,
           texture_enabled=True)
 K = np.asarray([20.0, 0, 16.0, 0, 20.0, 12.0, 0, 0, 1], np.float32)
 K48 = np.array([40.0, 0, 32.0, 0, 40.0, 24.0, 0, 0, 1], np.float32)
+# every port model here runs on the CPU, asked for explicitly (the models
+# default to the CUDA card)
+DEV = torch.device("cpu")
 
 
 @pytest.fixture(scope="module")
@@ -133,7 +136,7 @@ def test_mesher_model_matches_jax():
     kw = dict(map_scale=[6.4, 6.4], voxel_scale=0.1,
               num_voxel_per_blk_axis=8, max_blocks=256, max_submap_num=4,
               texture_enabled=True)
-    jm, tm = JMap(**kw), TMap(**kw)
+    jm, tm = JMap(**kw), TMap(**kw, device=DEV)
     jm.init_sphere()
     tm.state = bridge.grid_state_from_numpy(jm.state)
     want = JMesher(jm, max_triangles=20000, delivery="f32")
@@ -169,7 +172,7 @@ def test_incremental_mesh_matches_full(delivery):
     wall recedes, so blocks gain, rewrite and lose surface. The node's
     100 m map takes the f32 delivery, a 10 m map the quantized one."""
     m = TMap(map_scale=[6.4, 6.4], voxel_scale=0.1, num_voxel_per_blk_axis=8,
-             max_blocks=256, max_submap_num=4, max_bins=4096)
+             max_blocks=256, max_submap_num=4, max_bins=4096, device=DEV)
     m.set_dep_camera_intrinsic(K48)
     inc = TMesher(m, max_triangles=60000, delivery=delivery)
     eye = np.eye(3, dtype=np.float32)
@@ -198,7 +201,8 @@ def test_incremental_mesh_matches_full(delivery):
 
 def test_quantized_delivery_within_half_mm():
     m = TMap(map_scale=[6.4, 6.4], voxel_scale=0.1, num_voxel_per_blk_axis=8,
-             max_blocks=256, max_submap_num=4, texture_enabled=True)
+             max_blocks=256, max_submap_num=4, texture_enabled=True,
+             device=DEV)
     m.init_sphere()
     q = TMesher(m, max_triangles=20000)
     assert q.delivery == "quantized"
@@ -215,5 +219,5 @@ def test_quantized_delivery_within_half_mm():
     assert np.all(q.mesh_vertices[n:] == -1000000.0)
     # a map wider than the int16 millimetre range takes f32 delivery
     wide = TMap(map_scale=[100, 10], voxel_scale=0.05, max_blocks=64,
-                max_submap_num=1)
+                max_submap_num=1, device=DEV)
     assert TMesher(wide).delivery == "f32"

@@ -27,10 +27,14 @@ OPTS = dict(map_scale=[6.4, 3.2], voxel_scale=0.1, min_occupy_thres=1,
             max_ray_length=2.0, min_ray_length=0.3, max_blocks=256,
             max_submap_num=8, max_disp_particles=65536)
 
+# every port model here runs on the CPU, asked for explicitly (the models
+# default to the CUDA card)
+DEV = torch.device("cpu")
+
 
 def _pair(**kw):
     o = dict(OPTS, **kw)
-    jm, tm = JOcto(**o), TOcto(**o)
+    jm, tm = JOcto(**o), TOcto(**o, device=DEV)
     for m in (jm, tm):
         m.set_dep_camera_intrinsic(K_DEP)
         m.set_color_camera_intrinsic(K_COL)
@@ -125,7 +129,7 @@ def test_fuse_submaps_matches_jax(only):
             m.recast_depth_to_map(R, T, depth, tex)
     gkw = dict(OPTS, map_scale=[12.8, 3.2], max_blocks=512,
                is_global_map=True, texture_enabled=True, min_occupy_thres=0)
-    jg, tg = JOcto(**gkw), TOcto(**gkw)
+    jg, tg = JOcto(**gkw), TOcto(**gkw, device=DEV)
     rng = np.random.default_rng(9)
     R1 = np.linalg.qr(rng.standard_normal((3, 3)))[0]
     for g in (jg, tg):

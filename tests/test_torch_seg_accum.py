@@ -1,9 +1,10 @@
 """K1 twin (segmented_block_reduce_ref) against the Pallas kernel.
 
 The JAX side runs ``segmented_block_reduce`` in interpret mode, as the JAX
-package's own tests do. Keys, touched counts and lanes_dropped are exact;
-tiles agree to atol 1e-4 (test_pallas_accum.py's bound: the two sum the
-same f32 values in different orders).
+package's own tests do, with ``max_bkey`` passed to both where the JAX call
+sites pass it (its packed-key path). Keys, touched counts and lanes_dropped
+are exact; tiles agree to atol 1e-4 (test_pallas_accum.py's bound: the two
+sum the same f32 values in different orders).
 """
 
 import numpy as np
@@ -35,7 +36,6 @@ def _compare(bkey, intra, vals, max_touched, **kw):
         jnp.asarray(bkey), jnp.asarray(intra),
         tuple(jnp.asarray(v) for v in vals), V3, max_touched,
         interpret=True, **kw)
-    kw.pop("max_bkey", None)
     got = tk.segmented_block_reduce(
         torch.from_numpy(bkey), torch.from_numpy(intra),
         [torch.from_numpy(v) for v in vals], V3, max_touched, **kw)
@@ -176,3 +176,98 @@ def test_fusion_shape_v1000_six_values():
     for v in range(6):
         np.add.at(want[:, v], (row, intra[ok]), vals[v][ok])
     np.testing.assert_allclose(acc.numpy()[:len(blocks)], want, atol=1e-5)
+
+
+def _site(name, seed=9):
+    """K1's five call sites scaled down: (bkey, intra, vals, kwargs, max_bkey
+    as the call site passes it, or the bound its keys keep)."""
+    rng = np.random.default_rng(seed)
+    if name in ("bins", "bins8"):
+        n = 3000
+        rank = np.unique(np.sort(rng.integers(0, 700, n)),
+                         return_inverse=True)[1].astype(np.int32)
+        ok = rank < V3
+        bkey = np.where(ok, 0, jk.SENTINEL_BLOCK).astype(np.int32)
+        intra = np.where(ok, rank, 0).astype(np.int32)
+        vals = [np.ones(n, np.float32)] + [
+            rng.standard_normal(n).astype(np.float32)
+            for _ in range(4 if name == "bins" else 7)]
+        return bkey, intra, vals, dict(presorted=True), 1
+    n_vals = {"march": 2, "march5": 5, "fusion": 6}[name]
+    bkey, intra, vals = _lanes(seed, 5000, 40, invalid=0.2, n_vals=n_vals)
+    kw = {"march": dict(lane_cap=4000, vals_f16=True),
+          "march5": dict(vals_f16=True), "fusion": {}}[name]
+    return bkey, intra, vals, kw, 64
+
+
+@pytest.mark.parametrize("site", ["march", "bins", "march5", "bins8",
+                                  "fusion"])
+def test_twin_max_bkey_changes_nothing(site):
+    """The plain twin with ``max_bkey`` (as the call sites now pass it) gives
+    exactly what it gives without it, at all five site shapes."""
+    bkey, intra, vals, kw, mb = _site(site)
+    args = (torch.from_numpy(bkey), torch.from_numpy(intra),
+            [torch.from_numpy(v) for v in vals], V3, 48)
+    want = tk.segmented_block_reduce_ref(*args, **kw)
+    got = tk.segmented_block_reduce_ref(*args, max_bkey=mb, **kw)
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+    assert int(want[2]) > 0
+
+
+def test_keys_past_max_bkey_are_invalid():
+    """A lane whose block key is max_bkey or more counts as invalid in the
+    plain twin. This test covers only the twin; the kernel is held to it on
+    the card by chip_smoke.py phase 2 (a lane cap inside a block with keys
+    past max_bkey)."""
+    bkey, intra, vals = _lanes(12, 3000, 60)
+    args = (torch.from_numpy(intra), [torch.from_numpy(v) for v in vals],
+            V3, 64)
+    got = tk.segmented_block_reduce_ref(torch.from_numpy(bkey), *args,
+                                        max_bkey=30)
+    cut = np.where(bkey < 30, bkey, jk.SENTINEL_BLOCK).astype(np.int32)
+    want = tk.segmented_block_reduce_ref(torch.from_numpy(cut), *args)
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+
+
+def test_lane_cap_cuts_inside_a_block():
+    """The cap falls inside a block: that block keeps exactly its lanes
+    before the cut (in sorted order), later blocks vanish, and the dropped
+    valid lanes are counted."""
+    rng = np.random.default_rng(13)
+    n = 6000
+    bkey = np.repeat(np.arange(3, dtype=np.int32), n // 3)
+    intra = rng.integers(0, V3, n).astype(np.int32)
+    perm = rng.permutation(n)
+    bkey, intra = bkey[perm], intra[perm]
+    vals = [rng.standard_normal(n).astype(np.float32) for _ in range(2)]
+    touched, acc, n_touched, dropped = tk.segmented_block_reduce(
+        torch.from_numpy(bkey), torch.from_numpy(intra),
+        [torch.from_numpy(v) for v in vals], V3, 4, lane_cap=3000,
+        max_bkey=3)
+    cap = 4096                      # 3000 rounded up to whole CHUNKs
+    assert int(dropped) == n - cap
+    assert int(n_touched) == 3       # block 2 starts before the cut
+    np.testing.assert_array_equal(touched.numpy(), [0, 1, 2, -1])
+    order = np.lexsort((intra, bkey))[:cap]
+    want = np.zeros((4, 2, V3), np.float64)
+    for v in range(2):
+        np.add.at(want[:, v], (bkey[order], intra[order]), vals[v][order])
+    kept_2 = int((bkey[order] == 2).sum())
+    assert 0 < kept_2 < n // 3
+    np.testing.assert_allclose(acc.numpy(), want, atol=1e-5)
+
+
+@pytest.mark.parametrize("max_bkey,V3_,presorted,want", [
+    (203125, 4096, False, (203125, 4, 4)),     # the node's 100 m map
+    (2197, 4096, False, (2197, 4, 3)),          # the bench's 10 m map
+    (None, 4096, False, (2 ** 24, 8, 5)),       # no bound: the u64 key
+    (None, 8192, True, (2 ** 24, 8, 0)),        # presorted: no sort
+])
+def test_kernel_plan(max_bkey, V3_, presorted, want):
+    """The kernel's key width and radix passes: u32 when max_bkey * V3 <
+    2^30 (the JAX package's packed-sort rule), passes over the live bits."""
+    assert tk._plan(1000, V3_, presorted, max_bkey) == want
+    assert tk._lane_cap(5000, 3000) == (4096, True)
+    assert tk._lane_cap(5000, 4500) == (5000, False)

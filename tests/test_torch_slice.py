@@ -34,6 +34,10 @@ KW = dict(map_scale=[6.4, 6.4], voxel_scale=0.1, num_voxel_per_blk_axis=8,
           max_bins=8192, max_submap_num=8, max_esdf_sweeps=6,
           esdf_raise_slack_voxels=0.5, esdf_dense_max_voxels=0)
 
+# every port model here runs on the CPU, asked for explicitly (the models
+# default to the CUDA card)
+DEV = torch.device("cpu")
+
 
 def _small_K():
     K = (D435_K * np.float32(0.1)).astype(np.float32)
@@ -45,7 +49,7 @@ def _models(**kw):
     jm = JModel(**kw)
     jm.cfg = dataclasses.replace(jm.cfg, pallas_accum="on", pallas_esdf="on",
                                  esdf_loop_kernel="off")
-    return jm, TModel(**kw)
+    return jm, TModel(**kw, device=DEV)
 
 
 def _assert_maps_match(jm, tm):
@@ -160,4 +164,4 @@ def test_bin_bucket_rule_matches_jax(n):
 
 def test_unported_modes_raise():
     with pytest.raises(NotImplementedError):
-        TModel(**dict(KW, esdf_check_interval=4))
+        TModel(**dict(KW, esdf_check_interval=4), device=DEV)

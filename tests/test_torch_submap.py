@@ -50,6 +50,10 @@ GLOB_OPTS = dict(map_scale=[12.8, 6.4], voxel_scale=0.1,
 EYE = np.eye(3, dtype=np.float32)
 EXT = (EYE, np.zeros(3, np.float32))
 
+# every port model here runs on the CPU, asked for explicitly (the models
+# default to the CUDA card)
+DEV = torch.device("cpu")
+
 
 def depth_frame(t=0):
     jj, ii = np.meshgrid(np.arange(48), np.arange(64), indexing="ij")
@@ -61,6 +65,8 @@ def pose(t):
 
 
 def make(cls, dense=None, keyframe_step=2, **kw):
+    if cls is TSM:
+        kw["device"] = DEV
     sm = cls(dense or (TDense if cls is TSM else JDense),
              keyframe_step=keyframe_step, sub_opts=SUB_OPTS,
              global_opts=GLOB_OPTS, **kw)
@@ -271,7 +277,8 @@ def test_retry_after_overflow_equals_run_without_overflow():
         c, s = np.cos(a), np.sin(a)
         return np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
 
-    sub = TDense(**dict(SUB_OPTS, num_voxel_per_blk_axis=4, max_blocks=1024))
+    sub = TDense(**dict(SUB_OPTS, num_voxel_per_blk_axis=4, max_blocks=1024),
+                 device=DEV)
     sub.set_dep_camera_intrinsic(K_DEP)
     for t in range(6):
         sub.recast_depth_to_map(
@@ -281,7 +288,7 @@ def test_retry_after_overflow_equals_run_without_overflow():
     assert int(sub.state.num_blocks) > 128
 
     def glob():
-        return TDense(**GLOB_OPTS)
+        return TDense(**GLOB_OPTS, device=DEV)
 
     ref = glob()
     ref.fuse_submaps_incremental(sub, 0)
@@ -388,6 +395,8 @@ def _octo_pcls(n=6):
 
 
 def _octo(cls, **kw):
+    if cls is TSM:
+        kw["device"] = DEV
     sm = cls(JOcto if cls is JSM else TOcto, keyframe_step=2,
              sub_opts=OCTO_SUB, global_opts=OCTO_GLOB, **kw)
     sm.set_dep_camera_intrinsic(K_DEP)
@@ -468,7 +477,8 @@ def test_node_submap_path_matches_jax():
             for _ in range(6)]
     glob, sub = _node_opts()
     jsm = JSM(JDense, global_opts=glob, sub_opts=sub, keyframe_step=2)
-    tsm = TSM(TDense, global_opts=glob, sub_opts=sub, keyframe_step=2)
+    tsm = TSM(TDense, global_opts=glob, sub_opts=sub, keyframe_step=2,
+              device=DEV)
     for m in (jsm.global_map, jsm.submap_collection):
         m.cfg = dataclasses.replace(m.cfg, pallas_accum="on")
     meshers = (JMesher(jsm.global_map, 100000, tsdf_surface_thres=0.5),

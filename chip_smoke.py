@@ -2,14 +2,22 @@
 """Smoke run of the PyTorch/CUDA port (taichislam_tpu_torch) on one GPU.
 
 Phases:
-  1. card line (nvidia-smi) and the kernel build (nvcc, from csrc/);
+  1. card line (nvidia-smi) and the kernel build (nvcc, from csrc/), with
+     each kernel's registers, local memory (stack frame, spills) and static
+     shared memory as ptxas reported them and K2/K3's dynamic shared memory
+     per row;
   2. each hand-written kernel against its plain PyTorch twin on the card,
      at the main path's shapes (K1 at its five call sites, two calls
-     bit-identical, and with a lane cap inside a block; K2 with and without
-     scans; K3 at 264 and 1056 rows, budgets 3 and 32, stats equal to the
-     twin's), with both times (CUDA events, median), the bound (bytes or
-     operations, counted from this run's inputs: valid lanes, updating
-     voxels, each sweep's rows), the library yardstick where there is one, and the CUDA kernels of one call from
+     bit-identical, and with a lane cap inside a block; K2 at 264 and 1056
+     rows with and without scans, and equal to the twin where every slab is
+     idle, on a single 8-row slab with no gate and at V = 8 and 7; K3 at
+     264 and 1056 rows, budgets 3 and 32, and at V = 8 and 7, stats equal
+     to the twin's; V = 16 and 8 are compiled with constant shapes, V = 7
+     takes the runtime-shape build), with both times (CUDA events,
+     median), the bound (bytes or operations, counted from this run's
+     inputs: valid lanes, the rows and updating voxels each call or sweep
+     computes), the library yardstick
+     where there is one, and the CUDA kernels of one call from
      torch.profiler (only the kernel's own, no aten op but allocation);
   3. the main path at the bench configuration: 640x480 depth frames fused
      into a 5 cm TSDF (V = 16, 2048 blocks, float16 storage) with the
@@ -38,8 +46,10 @@ Phases:
      global map; 40 textured orbit frames, so full refuses at frames 10, 20
      and 30, each logged with its ms, lanes and block cap. No capacity may
      drop, K1 must launch at the fusion site; then drone B ingests A's
-     payloads, A re-poses by PGO and flushes, and the same frames with
-     incremental_fuse + async_finalize must give the same global map. K1
+     payloads, A re-poses by PGO and flushes (the PGO refuse read twice,
+     before and after the flush, each with the cudaMalloc calls made
+     inside it), and the same frames with incremental_fuse +
+     async_finalize must give the same global map. K1
      is also held against its twin on the lanes of a full refuse of that
      collection (reported as phase 2's fusion shape), and a torch.profiler
      window gives kernels per frame and the idle share;
@@ -116,23 +126,26 @@ def bound(n_bytes, n_ops=0.0):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def upd_ops(scans):
+    """f32 operations of ``sweep_row`` at one voxel that updates: 26
+    neighbour mins or maxes, three candidate adds, two candidate mins, the
+    eps add, its compare, two clamps and the change test's subtract and
+    compare, plus the min with the scan candidate on a scan sweep."""
+    return 37 + int(scans)
+
+
 def sweep_row_ops(V, n_upd, scans):
     """f32 operations of one row of ``sweep_row`` (csrc/esdf_sweep.cu),
     counted from its code, selects and index arithmetic left out: five
     compares per voxel of the row and its halo (observed, fixed, the two
-    source tests, the sign); a subtract and a compare per interior voxel
-    (the change test); for each of the ``n_upd`` voxels that update, 26
-    neighbour mins or maxes, three candidate adds, two candidate mins, the
-    eps add, its compare and two clamps, plus the min with the scan
-    candidate on a scan sweep; on a scan sweep, the six axis scans: 2 V^2
-    lines per axis, forward over W - 1 positions (5 operations, 6 off the
-    first axis) and back over W - 2 (6 operations)."""
-    W = V + 2
-    ops = 5 * W ** 3 + 2 * V ** 3 + (35 + int(scans)) * n_upd
+    source tests, the sign); for each of the ``n_upd`` voxels that update,
+    ``upd_ops(scans)``; on a scan sweep, the six axis scans: 2 V^2 lines
+    per axis (one per sign), forward and back over the V interior positions
+    (5 and 6 operations a position), and one more min a position on the
+    axis whose candidates meet another axis's in shared memory."""
+    ops = 5 * (V + 2) ** 3 + upd_ops(scans) * n_upd
     if scans:
-        per_line = [(W - 1) * (5 if axis == 0 else 6) + (W - 2) * 6
-                    for axis in range(3)]
-        ops += 2 * V * V * sum(per_line)
+        ops += 2 * V * V * V * (3 * 11 + 1)
     return ops
 
 
@@ -152,13 +165,14 @@ def updating_voxels(enc, V, gamma):
 
 
 def k3_ops(e3, enc, nsl, upd, lk, stats):
-    """f32 operations this run's K3 loop needs: for each sweep, the rows it
-    computes (the updatable rows of its active slabs), with the scans on
-    the sweeps that take them. The gates are replayed with the twin: the
-    slabs that changed in sweep s come from its fields after s - 1 and s
-    sweeps (interiors, by more than eps_conv), and loop_gates_ref gives the
-    next sweep's active slabs. Their count must equal the kernel's
-    computed_slabs."""
+    """(f32 operations, rows computed at least once) of this run's K3 loop:
+    for each sweep, the rows it computes (the updatable rows of its active
+    slabs), with the scans on the sweeps that take them. The gates are
+    replayed with the twin: the slabs that changed in sweep s come from its
+    fields after s - 1 and s sweeps (interiors, by more than eps_conv), and
+    loop_gates_ref gives the next sweep's active slabs. Their count must
+    equal the kernel's computed_slabs."""
+    import torch
     from taichislam_tpu_torch.ops.kernels import esdf_sweep as ks
     V = lk["V"]
     W = V + 2
@@ -168,14 +182,16 @@ def k3_ops(e3, enc, nsl, upd, lk, stats):
     acts, _ = ks.loop_gates_ref(nsl, upd)
     prev = e3.view(-1, W, W, W)[:, 1:-1, 1:-1, 1:-1]
     ops = n_comp = 0
+    ever = torch.zeros_like(updr)
     for s in range(sweeps):
         scans = s < lk["scan_sweeps"] or (lk["scan_period"] > 0 and
                                           s % lk["scan_period"] == 0)
         rows = acts.repeat_interleave(8) & updr
+        ever |= rows
         n_comp += int(acts.sum())
         nv = n_upd[rows]
         ops += int(rows.sum()) * sweep_row_ops(V, 0, scans) + \
-            int(nv.sum()) * (35 + int(scans))
+            int(nv.sum()) * upd_ops(scans)
         fld, _ = ks.esdf_sweep_loop_ref(e3, enc, nsl, upd,
                                         **dict(lk, max_sweeps=s + 1))
         cur = fld.view(-1, W, W, W)[:, 1:-1, 1:-1, 1:-1]
@@ -185,21 +201,27 @@ def k3_ops(e3, enc, nsl, upd, lk, stats):
         prev = cur
     require(n_comp == comp, f"K3 op count: {n_comp} computed slabs replayed "
             f"against the kernel's {comp}")
-    return ops
+    return ops, int(ever.sum())
 
 
 def profile_call(fn):
     """torch.profiler over one call of ``fn`` (warmed): the CUDA kernels by
     name with their counts and device ms, and the aten ops other than
-    allocation."""
+    allocation. A window that recorded no CUDA kernel at all (the profiler
+    now and then misses a short window's device events) is taken again, up
+    to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        if any(a.device_type == torch.autograd.DeviceType.CUDA
+               for a in prof.key_averages()):
+            break
     kernels, aten = {}, {}
     for a in prof.key_averages():
         if a.device_type == torch.autograd.DeviceType.CUDA:
@@ -345,6 +367,23 @@ def check_seg_accum_cap(dev, case):
         f"max_abs_err {e}, as the twin")
 
 
+def k2_bound(V, slab_act, side, scans):
+    """(bound_ms, bound_by) of one K2 call, counted from this call's
+    inputs. Bytes: every row's field read and written (an idle slab's row
+    only passes through), the side of the interior voxels of the rows of
+    active slabs (interior-only by contract), the enc of those rows that
+    have a voxel to update, and the gate. Operations: sweep_row's on each
+    of those rows and at each of their updating voxels."""
+    N, W3 = side.shape[0], (V + 2) ** 3
+    act = slab_act.repeat_interleave(8) != 0
+    n_upd = (side != 0).flatten(1).sum(1)
+    rows = act & (n_upd > 0)
+    n_act, n_rows = int(act.sum()), int(rows.sum())
+    return bound(N * W3 * 8 + n_act * V ** 3 + n_rows * W3 * 4 + N // 8 * 4,
+                 n_rows * sweep_row_ops(V, 0, scans) +
+                 int(n_upd[act].sum()) * upd_ops(scans))
+
+
 def check_esdf(dev, results):
     import torch
     from taichislam_tpu_torch.ops.kernels import esdf_sweep as ks
@@ -353,36 +392,42 @@ def check_esdf(dev, results):
     kw = SWEEP_KW
     V = kw["V"]
     W3 = (V + 2) ** 3
-    esdf, enc, side, slab_act = (torch.from_numpy(a).to(dev)
-                                 for a in k2_case())
-    N = K2_ROWS
-    err2, k2 = 0.0, {}
-    for scans in (False, True):
-        got = ks.esdf_sweep(esdf, enc, side, slab_act, with_scans=scans, **kw)
-        want = ks.esdf_sweep_ref(esdf, enc, side, slab_act, with_scans=scans,
-                                 **kw)
-        e = float((got - want).abs().max())
-        require(e <= 1e-6, f"K2 scans={scans}: max abs err {e}")
-        err2 = max(err2, e)
-        ms = cuda_ms(lambda: ks.esdf_sweep(esdf, enc, side, slab_act,
-                                           with_scans=scans, **kw), 20)
-        pms = cuda_ms(lambda: ks.esdf_sweep_ref(esdf, enc, side, slab_act,
-                                                with_scans=scans, **kw), 5)
-        # every row of an active slab runs the sweep; its voxels with a
-        # side update
-        rows = slab_act.repeat_interleave(8) != 0
-        n_upd = int((side != 0).flatten(1).sum(1)[rows].sum())
-        b_ms, b_by = bound(N * W3 * 13 + N // 8 * 4,
-                           int(rows.sum()) * sweep_row_ops(V, 0, scans) +
-                           n_upd * (35 + int(scans)))
-        log(f"[phase2] K2 scans={scans}: max_abs_err {e} ms {ms:.4f} "
-            f"plain_ms {pms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms "
-            f"none (no single PyTorch call computes it)")
-        n_k = profile_line(f"K2 scans={scans}", lambda: ks.esdf_sweep(
-            esdf, enc, side, slab_act, with_scans=scans, **kw), ms, "k2_")
-        k2[scans] = dict(ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
-                         kernels_per_call=n_k)
-    results["K2"] = dict(max_abs_err=err2, library_ms=None, **k2[True])
+    # K2 at the bench's 264 rows (one wave) and at 1056 rows (past it)
+    err2, k2 = 0.0, []
+    for N in (K2_ROWS, 4 * K2_ROWS):
+        esdf, enc, side, slab_act = (torch.from_numpy(a).to(dev)
+                                     for a in k2_case(N))
+        for scans in (False, True):
+            got = ks.esdf_sweep(esdf, enc, side, slab_act, with_scans=scans,
+                                **kw)
+            want = ks.esdf_sweep_ref(esdf, enc, side, slab_act,
+                                     with_scans=scans, **kw)
+            e = float((got - want).abs().max())
+            require(e <= 1e-6, f"K2 {N} rows scans={scans}: max abs err {e}")
+            err2 = max(err2, e)
+            ms = cuda_ms(lambda: ks.esdf_sweep(esdf, enc, side, slab_act,
+                                               with_scans=scans, **kw), 20)
+            pms = cuda_ms(lambda: ks.esdf_sweep_ref(
+                esdf, enc, side, slab_act, with_scans=scans, **kw), 5)
+            b_ms, b_by = k2_bound(V, slab_act, side, scans)
+            log(f"[phase2] K2 {N} rows scans={scans}: max_abs_err {e} ms "
+                f"{ms:.4f} plain_ms {pms:.4f} bound_ms {b_ms:.4f} ({b_by}) "
+                f"library_ms none (no single PyTorch call computes it)")
+            n_k = profile_line(f"K2 {N} rows scans={scans}",
+                               lambda: ks.esdf_sweep(esdf, enc, side,
+                                                     slab_act,
+                                                     with_scans=scans, **kw),
+                               ms, "k2_")
+            k2.append(dict(shape=f"{N} rows scans={scans}", ms=ms,
+                           plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                           kernels_per_call=n_k, max_abs_err=e))
+        del esdf, enc, side, slab_act, got, want
+    check_esdf_edges(dev)
+    main = k2[1]   # 264 rows with scans
+    results["K2"] = dict(max_abs_err=err2, ms=main["ms"],
+                         plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                         bound_by=main["bound_by"], library_ms=None,
+                         shapes=k2)
 
     # K3 at the bench's 264 rows and at 1056 rows (more rows than CTAs fit
     # on the card at once, so CTAs take rows by grid stride)
@@ -411,9 +456,11 @@ def check_esdf(dev, results):
             pms = cuda_ms(lambda: ks.esdf_sweep_loop_ref(e3, n3, nsl, upd,
                                                          **lk), 3)
             sweeps = int(gst[0])
-            b_ms, b_by = bound(n_rows * W3 * 12 + n_rows * 27 * 4 +
-                               n_rows * 4 + 16,
-                               k3_ops(e3, n3, nsl, upd, lk, gst))
+            # the field read and written; the enc of the rows computed at
+            # least once; the neighbour table, upd and the stats
+            ops, n_enc = k3_ops(e3, n3, nsl, upd, lk, gst)
+            b_ms, b_by = bound(n_rows * W3 * 8 + n_enc * W3 * 4 +
+                               n_rows * 27 * 4 + n_rows * 4 + 16, ops)
             log(f"[phase2] K3 {n_rows} rows budget {budget}: stats "
                 f"{gst.tolist()} max_abs_err {e} ms {ms:.4f} plain_ms "
                 f"{pms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms none "
@@ -433,6 +480,86 @@ def check_esdf(dev, results):
                          bound_ms=first["bound_ms"],
                          bound_by=first["bound_by"], library_ms=None,
                          shapes=shapes)
+
+
+def check_esdf_edges(dev):
+    """K2 where every slab is idle (every row passes through), on a single
+    8-row slab with no gate (a null gate on the card), at V = 8 (the other
+    constant-shape build) and at V = 7 (the runtime-shape build, loading
+    voxel by voxel since a plane is no whole number of float4s), with and
+    without scans; K3 at V = 8 and 7, budget 32. Each equal to its twin
+    within 1e-6, K3's stats exactly."""
+    import torch
+    from taichislam_tpu_torch.ops.kernels import esdf_sweep as ks
+    from kernel_ab import SWEEP_KW, k2_case, k3_case, sweep_fields
+    esdf, enc, side, slab_act = (torch.from_numpy(a).to(dev)
+                                 for a in k2_case())
+    rng = np.random.default_rng(5)
+    one = [torch.from_numpy(a).to(dev) for a in sweep_fields(
+        rng, 8, SWEEP_KW["V"], 8)]
+    cases = [("all slabs idle", (esdf, enc, side, torch.zeros_like(
+        slab_act)), SWEEP_KW), ("one 8-row slab, no gate", (*one, None),
+                                SWEEP_KW)]
+    for V in (8, 7):
+        f = [torch.from_numpy(a).to(dev) for a in sweep_fields(rng, 64, V,
+                                                                48)]
+        cases.append((f"V = {V}, 64 rows", (*f, slab_act[:8]),
+                      dict(SWEEP_KW, V=V)))
+    for name, args, kw in cases:
+        for scans in (False, True):
+            got = ks.esdf_sweep(*args, with_scans=scans, **kw)
+            want = ks.esdf_sweep_ref(*args, with_scans=scans, **kw)
+            e = float((got - want).abs().max())
+            require(e <= 1e-6, f"K2 {name} scans={scans}: max abs err {e}")
+            if name == "all slabs idle":
+                require(torch.equal(got, args[0]), "K2 idle slabs changed")
+            log(f"[phase2] K2 {name} scans={scans}: max_abs_err {e}, as "
+                f"the twin")
+    for V in (8, 7):
+        args = [torch.from_numpy(a).to(dev) for a in k3_case(64, V=V)]
+        lk = dict(SWEEP_KW, V=V, eps_conv=2e-3, max_sweeps=32,
+                  scan_sweeps=1, scan_period=0)
+        got, gst = ks.esdf_sweep_loop(*args, **lk)
+        want, wst = ks.esdf_sweep_loop_ref(*args, **lk)
+        e = float((got - want).abs().max())
+        require(torch.equal(gst.cpu(), wst.cpu()) and e <= 1e-6,
+                f"K3 V = {V}: stats {gst.tolist()} vs {wst.tolist()}, max "
+                f"abs err {e}")
+        log(f"[phase2] K3 V = {V}, 64 rows budget 32: stats {gst.tolist()} "
+            f"max_abs_err {e}, as the twin")
+
+
+def build_report():
+    """Registers, local memory (stack frame, spills) and shared memory per
+    kernel, as ptxas reported them in build/kernels/build.log, and K2/K3's
+    dynamic shared memory per row at V = 16 and 8."""
+    import re
+    from taichislam_tpu_torch.ops.kernels import build
+    from taichislam_tpu_torch.ops.kernels import esdf_sweep as ks
+    from kernel_ab import SWEEP_KW
+    name, spill, rows = None, "", []
+    for line in (build.BUILD_DIR / "build.log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"(k[123]_[a-z_]+)", m.group(1))
+            name, spill = (k.group(1) if k else m.group(1)), ""
+            v = re.search(r"ILi(\d+)E", m.group(1))   # template <int VC>
+            name += f"<{v.group(1)}>" if v else ""
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name and int(m.group(1)):
+            spill = f" (stack frame {m.group(1)} B, spills {m.group(2)} / " \
+                f"{m.group(3)} B)"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            st = re.search(r"(\d+) bytes smem", line)
+            rows.append(f"{name} {m.group(1)} regs "
+                        f"{st.group(1) if st else 0} B static{spill}")
+            name = None
+    V = SWEEP_KW["V"]
+    log(f"[phase1] ptxas per kernel: {'; '.join(rows)}; K2/K3 dynamic "
+        f"shared memory per row at V = {V}: {ks.row_smem_bytes(V)} B, at "
+        f"V = 8: {ks.row_smem_bytes(8)} B")
 
 
 # ---------------------------------------------------------------------------
@@ -942,29 +1069,46 @@ def submap_phase(dev, smi, frames, texs, launches, results):
     for buf in sent:
         b.input_remote_submap(buf)
     t.mark()
-    shift = {fid: (np.asarray(sm.pgo_poses[fid][0]),
-                   np.asarray(sm.pgo_poses[fid][1]) + np.float32(0.05))
-             for fid in sm.submaps}
-    sm.set_frame_poses(shift)
-    t.mark()
-    sm.local_to_global()
+    ms_b = t.ms()[0]
+
+    def pgo_refuse():
+        """Re-pose every submap by 5 cm and refuse: (ms, cudaMalloc calls
+        made inside the refuse)."""
+        shift = {fid: (np.asarray(sm.pgo_poses[fid][0]),
+                       np.asarray(sm.pgo_poses[fid][1]) + np.float32(0.05))
+                 for fid in sm.submaps}
+        sm.set_frame_poses(shift)
+        n0 = torch.cuda.memory_stats().get("num_device_alloc", 0)
+        t = Timer(dev)
+        t.mark()
+        sm.local_to_global()
+        t.mark()
+        st = sm.global_map.last_stats
+        require(int(st["fuse_dropped"]) == 0 and
+                int(st["fuse_tiles_dropped"]) == 0, "PGO refuse dropped")
+        return (t.ms()[0],
+                torch.cuda.memory_stats().get("num_device_alloc", 0) - n0)
+
+    pgo = [pgo_refuse()]
+    t = Timer(dev)
     t.mark()
     sm.flush()
     b.input_remote_submap(sent[-1])
     t.mark()
-    ms = t.ms()
+    ms_f = t.ms()[0]
+    # a second reading of the same refuse, after the flush
+    pgo.append(pgo_refuse())
     n_b = b.submap_collection.remote_submap_num
     require(n_b == len(sent) == n_bound + 1,
             f"drone B holds {n_b} of {len(sent)}")
     require(b.global_map.count_active() > 0, "drone B: empty global map")
     fz = sm.global_map.last_fuse
-    require(int(sm.global_map.last_stats["fuse_dropped"]) == 0 and
-            int(sm.global_map.last_stats["fuse_tiles_dropped"]) == 0,
-            "PGO refuse dropped")
-    log(f"[phase8] drone B ingested {n_b} submaps in {ms[0]:.3f} ms, global "
-        f"voxels {b.global_map.count_active()}; PGO refuse {ms[2]:.3f} ms "
-        f"(bcap {fz['bcap']}, lanes {fz['lanes']}); flush + ingest "
-        f"{ms[3]:.3f} ms")
+    log(f"[phase8] drone B ingested {n_b} submaps in {ms_b:.3f} ms, global "
+        f"voxels {b.global_map.count_active()}; PGO refuse "
+        f"{pgo[0][0]:.3f} ms ({pgo[0][1]} cudaMalloc calls inside it; bcap "
+        f"{fz['bcap']}, lanes {fz['lanes']}), again after the flush "
+        f"{pgo[1][0]:.3f} ms ({pgo[1][1]} cudaMalloc calls); flush + ingest "
+        f"{ms_f:.3f} ms")
     del b
 
     sm_a, _, sent_a, recs_a = submap_run(
@@ -1137,6 +1281,7 @@ def main():
     build.library()
     log(f"[phase1] kernels built and loaded in "
         f"{time.perf_counter() - t0:.1f} s ({build.library_path().name})")
+    build_report()
 
     # ---- phase 2 ----------------------------------------------------------
     results = {}

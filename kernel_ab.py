@@ -2,11 +2,13 @@
 """The hand-written kernels' inputs at the main path's shapes, and an A/B
 timing of two checkouts of the port on one card.
 
-``k1_cases``, ``k1_cap_case``, ``sweep_fields`` and ``k3_case`` build the
-inputs that ``chip_smoke.py`` phase 2 holds each kernel against its twin
-on (numpy, from fixed seeds). Run as a script, this file times the
-kernels of two checkouts at those shapes in turns (old, new, new, old),
-each turn in its own process that imports the port from its checkout:
+``k1_cases``, ``k1_cap_case``, ``sweep_fields``, ``k2_case`` and
+``k3_case`` build the inputs that ``chip_smoke.py`` phase 2 holds each
+kernel against its twin on (numpy, from fixed seeds): K1 at its five call
+sites, K2 and K3 at 264 and 1056 rows. Run as a script, this file times the
+kernels of two checkouts at those shapes, and K2 and K3 at V = 8 over 264
+rows, in turns (old, new, new, old), each turn in its own process that
+imports the port from its checkout:
 
     git archive <earlier commit> | tar -x -C build/old
     python3 kernel_ab.py --old build/old \\
@@ -14,8 +16,10 @@ each turn in its own process that imports the port from its checkout:
 
 ``--old`` is an unpacked ``git archive`` of the earlier commit. Each turn
 builds its checkout's kernels (nvcc, into that checkout's build/) and
-prints one JSON line of medians (CUDA events); the script prints the four
-turns and writes them to ``--out``. It needs one CUDA card.
+prints one JSON line: per kernel and shape the median event ms of one call
+(CUDA events, the host's share included) and its device ms (the kernels
+torch.profiler records, the mean of five calls); the script prints the
+four turns and writes them to ``--out``. It needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -159,23 +163,26 @@ K2_ROWS = 264           # the bench's block-mode rows (33 slabs)
 SWEEP_KW = dict(V=16, v1=0.05, gamma=0.05, eps=0.025, max_ray=3.0)
 
 
-def k2_case():
-    """K2's inputs: (esdf, enc, side, slab_act) at 264 rows, V = 16."""
-    rng = np.random.default_rng(2)
-    esdf, enc, side = sweep_fields(rng, K2_ROWS, 16, 200)
-    slab_act = (rng.random(K2_ROWS // 8) < 0.8).astype(np.int32)
+def k2_case(N=K2_ROWS, V=16):
+    """K2's inputs: (esdf, enc, side, slab_act) over N rows: at 264 rows 200
+    updatable, else three quarters of the rows; 80 % of the slabs
+    active."""
+    rng = np.random.default_rng(2 if N == K2_ROWS else 3)
+    esdf, enc, side = sweep_fields(rng, N, V, 200 if N == K2_ROWS else
+                                   N * 3 // 4)
+    slab_act = (rng.random(N // 8) < 0.8).astype(np.int32)
     return esdf, enc, side, slab_act
 
 
-def k3_case(N=K2_ROWS):
-    """K3's inputs: (esdf, enc, nsl27, upd) over N rows, V = 16: a random
+def k3_case(N=K2_ROWS, V=16):
+    """K3's inputs: (esdf, enc, nsl27, upd) over N rows: a random
     27-neighbour table over the used rows with the garbage row ``cap``
     (256 at 264 rows, N - 8 else) and padding rows past it, whose enc is
     ENC_BIG; three quarters of the used rows updatable (200 of 256)."""
     rng = np.random.default_rng(2 if N == K2_ROWS else 3)
     cap = 256 if N == K2_ROWS else N - 8
     n_upd = 200 if N == K2_ROWS else cap * 3 // 4
-    esdf, enc, _ = sweep_fields(rng, N, 16, n_upd)
+    esdf, enc, _ = sweep_fields(rng, N, V, n_upd)
     rng.random(N // 8)    # K2's slab gates: the 264-row case follows them
     nsl = rng.integers(0, cap + 1, (27, N)).astype(np.int32)
     nsl[13] = np.minimum(np.arange(N), cap)
@@ -205,9 +212,32 @@ def _cuda_ms(fn, reps):
     return float(np.median(times))
 
 
+def _device_ms(fn, n=5):
+    """Mean device ms of one ``fn()`` call: the CUDA kernels torch.profiler
+    records over ``n`` warmed calls (a window that records no kernel is
+    taken again, up to three times). Unlike the event time, it leaves out
+    the host's share of a call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(a.device_time_total for a in prof.key_averages()
+                 if a.device_type == torch.autograd.DeviceType.CUDA)
+        if us:
+            return us / n / 1000.0
+    return None
+
+
 def worker(root: str) -> dict:
     """Time one checkout's kernels (imported from ``root``) at the phase-2
-    shapes; returns {kernel/shape: ms}."""
+    shapes; returns {kernel/shape: event ms, kernel/shape device: device
+    ms}."""
     sys.path.insert(0, str(Path(root).resolve()))
     import torch
     from taichislam_tpu_torch.ops.kernels import build
@@ -218,27 +248,39 @@ def worker(root: str) -> dict:
     takes_bound = "max_bkey" in inspect.signature(
         k1.segmented_block_reduce).parameters
     out = {}
+
+    def timed(key, fn, reps):
+        out[key] = _cuda_ms(fn, reps)
+        out[f"{key} device"] = _device_ms(fn)
+
     for name, bkey, intra, vals, kw, mb in k1_cases():
         args = (torch.from_numpy(bkey).to(dev),
                 torch.from_numpy(intra).to(dev),
                 [torch.from_numpy(v).to(dev) for v in vals])
         kw = dict(kw, max_bkey=mb) if takes_bound and mb else kw
-        out[f"K1 {name}"] = _cuda_ms(
-            lambda: k1.segmented_block_reduce(*args, **kw),
-            5 if name == "fusion" else 20)
+        timed(f"K1 {name}", lambda: k1.segmented_block_reduce(*args, **kw),
+              5 if name == "fusion" else 20)
         del args
-    esdf, enc, side, act = (torch.from_numpy(a).to(dev) for a in k2_case())
-    for scans in (True, False):
-        out[f"K2 scans={scans}"] = _cuda_ms(
-            lambda: ks.esdf_sweep(esdf, enc, side, act, with_scans=scans,
-                                  **SWEEP_KW), 20)
-    for N in (K2_ROWS, 4 * K2_ROWS):
-        e3, n3, nsl, upd = (torch.from_numpy(a).to(dev) for a in k3_case(N))
+    # the main path's V = 16 at 264 and 1056 rows, and V = 8 (the block
+    # size of the examples and tests) at 264 rows
+    shapes = ((K2_ROWS, 16, ""), (4 * K2_ROWS, 16, ""),
+              (K2_ROWS, 8, " V=8"))
+    for N, V, tag in shapes:
+        esdf, enc, side, act = (torch.from_numpy(a).to(dev)
+                                for a in k2_case(N, V))
+        kw = dict(SWEEP_KW, V=V)
+        for scans in (True, False):
+            timed(f"K2 {N} rows{tag} scans={scans}",
+                  lambda: ks.esdf_sweep(esdf, enc, side, act,
+                                        with_scans=scans, **kw), 20)
+    for N, V, tag in shapes:
+        e3, n3, nsl, upd = (torch.from_numpy(a).to(dev)
+                            for a in k3_case(N, V))
         for budget in (3, 32):
-            lk = dict(SWEEP_KW, eps_conv=2e-3, max_sweeps=budget,
+            lk = dict(SWEEP_KW, V=V, eps_conv=2e-3, max_sweeps=budget,
                       scan_sweeps=1, scan_period=0)
-            out[f"K3 {N} rows budget {budget}"] = _cuda_ms(
-                lambda: ks.esdf_sweep_loop(e3, n3, nsl, upd, **lk), 10)
+            timed(f"K3 {N} rows{tag} budget {budget}",
+                  lambda: ks.esdf_sweep_loop(e3, n3, nsl, upd, **lk), 10)
     return out
 
 

@@ -14,6 +14,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from taichislam_tpu_torch.core.device import resolve_device
 from taichislam_tpu_torch.core.grid import GridState
 
 ESDF_KEYS = ("esdf", "fixed", "pending", "seen_tsdf", "seen_obs")
@@ -27,8 +28,10 @@ def _to_tensor(a, device) -> torch.Tensor:
 
 
 def grid_state_from_numpy(state, device=None) -> GridState:
-    """Build this package's GridState on ``device`` from a GridState-like
-    object whose fields are numpy (or numpy-convertible) arrays."""
+    """Build this package's GridState on ``device`` (the CUDA card unless
+    given) from a GridState-like object whose fields are numpy (or
+    numpy-convertible) arrays."""
+    device = resolve_device(device)
     return GridState(
         table=_to_tensor(state.table, device),
         block_coords=_to_tensor(state.block_coords, device),
@@ -56,7 +59,8 @@ OCTOMAP_CHANNELS = {"occupy": np.float32, "color": np.float32}
 
 def octomap_state_from_numpy(state, device=None) -> GridState:
     """An Octomap grid (f32 hit counts ``occupy`` and, textured, f32
-    ``color`` (nb, 3, V³)) as this package's GridState on ``device``."""
+    ``color`` (nb, 3, V³)) as this package's GridState on ``device`` (the
+    CUDA card unless given)."""
     for k, v in state.channels.items():
         if OCTOMAP_CHANNELS.get(k) != np.asarray(v).dtype:
             raise TypeError(f"not an octomap channel: {k} "
@@ -91,7 +95,9 @@ def copy_submap_registry(src, dst):
 
 def esdf_state_from_numpy(arrays: Dict[str, np.ndarray],
                           device=None) -> Dict[str, torch.Tensor]:
-    """ESDF arrays (keys among ``ESDF_KEYS``) as tensors on ``device``."""
+    """ESDF arrays (keys among ``ESDF_KEYS``) as tensors on ``device`` (the
+    CUDA card unless given)."""
+    device = resolve_device(device)
     unknown = set(arrays) - set(ESDF_KEYS)
     if unknown:
         raise KeyError(f"unknown ESDF arrays {sorted(unknown)}")

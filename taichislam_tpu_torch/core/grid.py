@@ -17,6 +17,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from taichislam_tpu_torch.core.config import GridSpec
+from taichislam_tpu_torch.core.device import resolve_device
 
 
 class GridState(NamedTuple):
@@ -41,7 +42,10 @@ class GridState(NamedTuple):
 
 def make_grid_state(spec: GridSpec, channel_defs: Dict[str, Tuple],
                     device=None) -> GridState:
-    """Empty grid; ``channel_defs`` maps name -> (torch dtype, extra_shape)."""
+    """Empty grid; ``channel_defs`` maps name -> (torch dtype, extra_shape).
+    On the CUDA card unless ``device`` says otherwise (see
+    :func:`resolve_device`)."""
+    device = resolve_device(device)
     nb = spec.max_blocks + 1
     channels = {
         name: torch.zeros((nb,) + tuple(extra) + (spec.voxels_per_block,),

@@ -5,29 +5,58 @@
 // sweep layout, rows of (W, W*W) f32 = [j | i*W + k], W = V + 2.
 // K3 replaces esdf_sweep_loop_pallas (`_loop_kernel`): the whole sweep loop
 // with in-place halo-shell exchange, slab activity gates and a convergence
-// exit.
+// exit. Both run the same row body, `sweep_row`.
 //
-// What bounds it on the H100: per row the sweep reads 2 x W^3 f32 (field and
-// encoded TSDF) and writes W^3, a few hundred bytes per voxel of stencil and
-// scan work all from shared memory, so at the main path's ~264 rows a sweep
-// is too small to fill the card and is bound by latency and launch count,
-// not by bytes or FLOPs.
+// What bounds it on the H100: per row the sweep reads and writes W^3 f32 of
+// field; a row that updates also reads W^3 f32 of encoded TSDF, and a row of
+// an active slab V^3 int8 of side (interior-only). At the main path's 264
+// rows that is ~17 MB, 5 us at the HBM rate, one CTA per row in a single
+// wave (two CTAs per SM). Every CTA loads, computes and stores at
+// the same time as the others, so what is not overlapped inside a CTA adds
+// up: the row's loads, then instruction issue over shared memory (the
+// stencil's 26 neighbours per updating voxel, the axis scans' dependent
+// steps). On the host, a call's Python and launch work is of the same order
+// as the kernel (see ops/kernels/esdf_sweep.py).
 //
-// Design:
-// - One CTA per row. The row's source-masked fields lo/hi (W^3 f32 each),
-//   a per-voxel flag byte and the interior scan candidates live in dynamic
-//   shared memory (~85 KB at V = 16), so every stencil and scan read is a
-//   shared-memory read.
-// - The 26-stencil class extrema (faces / edges / corners) are read directly
-//   from the neighbours; min and max are exact, so this equals the TPU's
-//   chains of separable shifts.
-// - The segmented min-plus axis scans run one thread per axis line, scanning
-//   sequentially over W. Min is exact, so a sequential scan equals the
-//   Hillis-Steele doubling of the Pallas kernel as long as each element is
-//   formed by the same rounded steps: x - p*v1, then + p*v1, then + v1. The
-//   library is built with --fmad=false so none of these contract into FMAs.
+// Design of the row body (one CTA of 256 threads per row):
+// - The main path's V = 16 and the examples' V = 8 are compiled with
+//   constant shapes (`VC`), so the line and column loops unroll and the
+//   scans keep their lines in registers; any other V runs the same code
+//   with runtime shapes (its line arrays then sit in local memory).
+// - Each warp owns a run of planes (j): it loads their field and enc into
+//   registers, 16 bytes a load and four loads of each in flight per lane
+//   (K2 also passes the field straight to the output), stages the field,
+//   and turns the pair into a flag byte per voxel (fixed, positive /
+//   negative source, observed, sign) and an interleaved (lo, -hi) pair per
+//   voxel: lo = psrc ? h : BIG and the negated hi, -hi = nsrc ? -h : BIG, so
+//   the negative side runs the same min-plus code and is negated back
+//   (max(a, b) = -min(-a, -b) and round-to-nearest is symmetric, so this is
+//   exact). It then scans its own planes' k and i lines, with no barrier
+//   but the warp's own, while the other warps' loads are still landing.
+// - The segmented min-plus axis scans: one lane per line and sign, the
+//   line's W pairs in registers, forward and backward in one pass; the k
+//   candidates are stored, the i candidates taken by min into them. Each
+//   candidate is formed by the same rounded steps as the Pallas kernel's
+//   Hillis-Steele doubling: x - p*v1, min, + p*v1, + v1 (built with
+//   --fmad=false, so nothing contracts into an FMA). The j line is the
+//   stencil column's own: its backward candidates are taken by min into
+//   the scan arrays before the walk (held in registers, they made K3
+//   spill), its forward ones are formed during the walk.
+// - Stencil by column walk: each thread owns an interior (i, k) column and
+//   walks j. For each plane it reduces the 3x3 neighbourhood once to
+//   (centre, min of the 4 in-plane faces, min of the 4 in-plane diagonals)
+//   for both signs; a voxel's faces / edges / corners are then mins over
+//   its own and the two adjacent planes' partials: 9 pair reads per voxel
+//   instead of 26, and no branch inside the 27-loop. Min and max are
+//   exact, so any order equals the TPU's separable shifts.
+// - Shared memory per row: h, the pairs, the two scan-candidate arrays
+//   (pitch V + 1 per line, so no bank conflicts) and the flags, 108 KB at
+//   V = 16: two CTAs per SM.
 // - Only interior voxels are updated; halo positions pass through (the
-//   side mask is interior-only by contract).
+//   side mask is interior-only by contract). Only the voxels that update
+//   are written by the walk (after the barrier that follows K2's
+//   pass-through stores); inactive slabs (K2) copy their rows with 16-byte
+//   loads.
 // - K3 is one persistent cooperative launch, as the TPU kernel is one call
 //   with a real early exit. One SM cannot hold the field resident as the
 //   TPU's VMEM did, so the field stays in device memory (L2-resident at the
@@ -38,7 +67,9 @@
 //   that fit on the card at once (2 per SM at V = 16); CTAs take rows and
 //   slabs by grid stride. The slab gates are derived in sparse form from
 //   the 27-neighbour table (one CTA per slab), equal to the TPU's dense
-//   adjacency products without their O(n_slab^2) tables.
+//   adjacency products without their O(n_slab^2) tables. K3 calls the row
+//   body in place: the row is staged into shared memory before any of its
+//   voxels is written.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -51,6 +82,16 @@ namespace {
 constexpr float kBig = 1e9f;
 constexpr float kEncBig = 1e6f;
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMinBlocks = 2;  // CTAs per SM the registers are budgeted for
+// the largest V whose row fits in the 227 KB of shared memory a CTA may
+// take (see smem_bytes); the side bits of a column fit in 32 bits up to 30
+constexpr int kMaxV = 20;
+constexpr size_t kMaxSmem = 227 * 1024;
+// the V compiled with constant shapes: the main path's, and the block size
+// of the examples and tests
+constexpr int kFastV = 16, kSmallV = 8;
+constexpr int kLoads = 4;      // float4 chunks a lane has in flight at once
 
 // flag bits per voxel
 constexpr uint8_t kFixed = 1, kPsrc = 2, kNsrc = 4, kObs = 8, kNonNeg = 16;
@@ -60,181 +101,371 @@ struct Params {
   float v1, v2, v3, gamma, eps, max_ray;
 };
 
-__host__ __device__ inline size_t smem_bytes(int V) {
-  int W = V + 2;
-  size_t W3 = (size_t)W * W * W, V3 = (size_t)V * V * V;
-  return (2 * W3 + 2 * V3) * sizeof(float) + W3;
+__host__ __device__ constexpr size_t align16(size_t b) {
+  return (b + 15) & ~(size_t)15;
 }
 
-// One sweep of one row. `side` (K2) gives the update side of each voxel;
-// when it is null (K3) the side derives from the flags and `upd`.
-// Returns (to thread 0's caller through *changed) whether any voxel moved
-// by more than eps_conv.
+// floats of one scan-candidate array: V lines of pitch V + 1 per plane, and
+// 16 more, so the two arrays' lines fall on different banks
+__host__ __device__ constexpr size_t scan_floats(int V) {
+  return (size_t)V * V * (V + 1) + 16;
+}
+
+// h | (lo, -hi) pairs | scan_lo, scan_hi | flags
+__host__ __device__ constexpr size_t smem_bytes(int V) {
+  const size_t W = V + 2, W3 = W * W * W;
+  return align16(W3 * 4) + align16(W3 * 8) + align16(2 * scan_floats(V) * 4) +
+         W3;
+}
+static_assert(smem_bytes(kMaxV) <= kMaxSmem &&
+                  smem_bytes(kMaxV + 1) > kMaxSmem,
+              "kMaxV must be the largest V whose row fits in shared memory");
+
+struct Row {
+  float* h;        // the field row (W^3)
+  float2* lh;      // (lo, -hi) of every voxel
+  float* scan_lo;  // scan candidates over lo, interior, pitch V + 1
+  float* scan_hi;  // scan candidates over -hi
+  uint8_t* fl;     // flag bits (W^3)
+};
+
+__device__ inline Row carve(int V) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const size_t W = V + 2, W3 = W * W * W;
+  const size_t o_lh = align16(W3 * 4), o_s = o_lh + align16(W3 * 8);
+  Row r;
+  r.h = reinterpret_cast<float*>(smem);
+  r.lh = reinterpret_cast<float2*>(smem + o_lh);
+  r.scan_lo = reinterpret_cast<float*>(smem + o_s);
+  r.scan_hi = r.scan_lo + scan_floats(V);
+  r.fl = smem + o_s + align16(2 * scan_floats(V) * 4);
+  return r;
+}
+
+__device__ void copy_row(float* dst, const float* src, int n) {
+  if ((((uintptr_t)dst | (uintptr_t)src) & 15) == 0 && (n & 3) == 0) {
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    float4* d4 = reinterpret_cast<float4*>(dst);
+#pragma unroll 4
+    for (int i = threadIdx.x; i < n / 4; i += blockDim.x) d4[i] = s4[i];
+  } else {
+#pragma unroll 4
+    for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+  }
+}
+
+// K2's update side of the column at (i, k) = base: bit j of pos / neg
+__device__ inline void side_bits(const int8_t* side, int base, int W2, int V,
+                                 uint32_t& pos, uint32_t& neg) {
+  pos = neg = 0;
+#pragma unroll 4
+  for (int j = 1; j <= V; ++j) {
+    const int8_t s = side[j * W2 + base];
+    pos |= (uint32_t)(s > 0) << j;
+    neg |= (uint32_t)(s < 0) << j;
+  }
+}
+
+// The flag bits of one voxel from its enc value, and its (lo, -hi) pair.
+__device__ inline uint32_t prepare(float e, float hv, float gamma,
+                                   float2& lh) {
+  const bool obs = e < kEncBig * 0.5f;
+  const float t = obs ? e : 0.0f;
+  const bool fixed = obs && fabsf(t) < gamma;
+  const bool psrc = t >= gamma ? obs : fixed;
+  const bool nsrc = t <= -gamma ? obs : fixed;
+  lh = make_float2(psrc ? hv : kBig, nsrc ? -hv : kBig);
+  return (fixed ? kFixed : 0) | (psrc ? kPsrc : 0) | (nsrc ? kNsrc : 0) |
+         (obs ? kObs : 0) | (t >= 0.0f ? kNonNeg : 0);
+}
+
+// The staged field, flags and pairs of four voxels, float4 chunk c.
+__device__ inline void prepare4(const Row& r, int c, float4 hv, float4 e,
+                                float gamma) {
+  float2 a, b, x, y;
+  const uint32_t f = prepare(e.x, hv.x, gamma, a) |
+                     prepare(e.y, hv.y, gamma, b) << 8 |
+                     prepare(e.z, hv.z, gamma, x) << 16 |
+                     prepare(e.w, hv.w, gamma, y) << 24;
+  reinterpret_cast<float4*>(r.h)[c] = hv;
+  reinterpret_cast<uint32_t*>(r.fl)[c] = f;
+  float4* lh4 = reinterpret_cast<float4*>(r.lh) + 2 * c;
+  lh4[0] = make_float4(a.x, a.y, b.x, b.y);
+  lh4[1] = make_float4(x.x, x.y, y.x, y.y);
+}
+
+// The staged field, flags and pairs of voxels [v0, v1) of the row, lane t
+// of nt taking every nt-th float4 chunk (`vec`: v0, v1 and the pointers
+// allow it) or voxel. A lane issues kLoads chunks' loads before it uses the
+// first. With `pass` (K2) the field also goes to the output.
+__device__ inline void prepare_range(const Row& r, const float* h,
+                                     const float* enc, float* pass, int v0,
+                                     int v1, int t, int nt, bool vec,
+                                     float gamma) {
+  if (!vec) {
+    for (int v = v0 + t; v < v1; v += nt) {
+      const float hv = h[v];
+      r.h[v] = hv;
+      r.fl[v] = prepare(enc[v], hv, gamma, r.lh[v]);
+      if (pass) pass[v] = hv;
+    }
+    return;
+  }
+  const float4* h4 = reinterpret_cast<const float4*>(h);
+  const float4* e4 = reinterpret_cast<const float4*>(enc);
+  for (int c0 = v0 / 4 + t; c0 < v1 / 4; c0 += kLoads * nt) {
+    float4 hv[kLoads], ev[kLoads];
+#pragma unroll
+    for (int k = 0; k < kLoads; ++k) {
+      const int c = c0 + k * nt;
+      if (c < v1 / 4) {
+        hv[k] = h4[c];
+        ev[k] = e4[c];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kLoads; ++k) {
+      const int c = c0 + k * nt;
+      if (c < v1 / 4) {
+        if (pass) reinterpret_cast<float4*>(pass)[c] = hv[k];
+        prepare4(r, c, hv[k], ev[k], gamma);
+      }
+    }
+  }
+}
+
+// The segmented min-plus scans of one line and one sign, in registers:
+// x[q] and f[q] are position q = 0..W-1 of the line (lo or -hi, and its
+// flags; `src` the sign's source bit). c[p - 1] gets the lesser of the two
+// directions' candidates at interior position p = 1..V. Each is formed by
+// the Pallas kernel's rounded steps: forward from positions up to p - 1,
+// x - q*v1, min, + q*v1, + v1; backward from positions from p + 1 on,
+// x + q*v1, min, - q*v1, + v1. A fixed voxel, a non-source and the line's
+// end restart the min.
+__device__ __forceinline__ void line_scan(const float* x, const uint8_t* f,
+                                          uint8_t src, int V, float v1,
+                                          float* c) {
+  const int W = V + 2;
+  float m = kBig;
+#pragma unroll
+  for (int q = 0; q < W - 2; ++q) {
+    const float pv = __fmul_rn((float)q, v1);
+    const float y = __fsub_rn(x[q], pv);
+    m = (q == 0 || (f[q] & kFixed) || !(f[q] & src)) ? y : fminf(m, y);
+    c[q] = __fadd_rn(__fadd_rn(m, pv), v1);
+  }
+#pragma unroll
+  for (int q = W - 1; q >= 2; --q) {
+    const float pv = __fmul_rn((float)q, v1);
+    const float y = __fadd_rn(x[q], pv);
+    m = (q == W - 1 || (f[q] & kFixed) || !(f[q] & src)) ? y : fminf(m, y);
+    c[q - 2] = fminf(c[q - 2], __fadd_rn(__fsub_rn(m, pv), v1));
+  }
+}
+
+// The k and i lines of interior plane j by one warp, lane = sign * V +
+// line (a loop over them past 32): the k candidates are stored, the i
+// candidates taken by min into them.
+template <int VC>
+__device__ __forceinline__ void scan_plane(const Row& r, int j, int lane,
+                                           int v_rt, float v1) {
+  constexpr int VA = VC > 0 ? VC : kMaxV;
+  const int V = VC > 0 ? VC : v_rt;
+  const int W = V + 2, W2 = W * W, SP = V + 1;
+  const float* comp = reinterpret_cast<const float*>(r.lh);
+#pragma unroll
+  for (int axis = 0; axis < 2; ++axis) {
+    __syncwarp();  // the plane's flags, then its k candidates, are complete
+    for (int t = lane; t < 2 * V; t += 32) {
+      const int sg = t / V, l = t % V + 1;
+      const int base = axis == 0 ? j * W2 + l * W : j * W2 + l;
+      const int stride = axis == 0 ? 1 : W;
+      float x[VA + 2], c[VA];
+      uint8_t f[VA + 2];
+#pragma unroll
+      for (int q = 0; q < W; ++q) {
+        x[q] = comp[2 * (base + q * stride) + sg];
+        f[q] = r.fl[base + q * stride];
+      }
+      line_scan(x, f, sg ? kNsrc : kPsrc, V, v1, c);
+      float* out = sg ? r.scan_hi : r.scan_lo;
+      if (axis == 0) {
+        float* o = out + ((j - 1) * V + l - 1) * SP;
+#pragma unroll
+        for (int p = 0; p < V; ++p) o[p] = c[p];
+      } else {
+        float* o = out + (j - 1) * V * SP + l - 1;
+#pragma unroll
+        for (int p = 0; p < V; ++p) o[p * SP] = fminf(o[p * SP], c[p]);
+      }
+    }
+  }
+}
+
+// One plane's 3x3 neighbourhood of (i, k) reduced for one sign: the centre,
+// the min of the 4 in-plane faces and the min of the 4 in-plane diagonals.
+struct Part {
+  float c, f, d;
+};
+
+__device__ inline void plane_part(const Row& r, int idx, int W, Part& lo,
+                                  Part& hi) {
+  float l[9], n[9];
+  const int off[9] = {0, -W, W, -1, 1, -W - 1, -W + 1, W - 1, W + 1};
+#pragma unroll
+  for (int a = 0; a < 9; ++a) {
+    const float2 x = r.lh[idx + off[a]];
+    l[a] = x.x;
+    n[a] = x.y;
+  }
+  lo.c = l[0];
+  lo.f = fminf(fminf(l[1], l[2]), fminf(l[3], l[4]));
+  lo.d = fminf(fminf(l[5], l[6]), fminf(l[7], l[8]));
+  hi.c = n[0];
+  hi.f = fminf(fminf(n[1], n[2]), fminf(n[3], n[4]));
+  hi.d = fminf(fminf(n[5], n[6]), fminf(n[7], n[8]));
+}
+
+// One sweep of one row, V = VC (or p.V when VC is 0). `side` (K2) gives the
+// update side of each voxel; when it is null (K3) the side derives from the
+// flags and `upd`. With `fresh_out` (K2) the whole row is first passed to
+// `out` (halo and idle voxels pass through); without it (K3, in place:
+// out == h) only the voxels that update are written. Returns (to thread
+// 0's caller through *changed) whether any voxel moved by more than
+// eps_conv.
+template <int VC>
 __device__ void sweep_row(const float* h, const float* enc,
                           const int8_t* side, bool upd, float* out,
-                          bool write_halo, const Params& p, bool with_scans,
+                          bool fresh_out, const Params& p, bool with_scans,
                           float eps_conv, int* changed) {
-  extern __shared__ float smem[];
-  const int V = p.V, W = V + 2, W2 = W * W, W3 = W2 * W, V3 = V * V * V;
-  float* lo = smem;
-  float* hi = lo + W3;
-  float* scan_lo = hi + W3;
-  float* scan_hi = scan_lo + V3;
-  uint8_t* fl = (uint8_t*)(scan_hi + V3);
-  const int tid = threadIdx.x, nt = blockDim.x;
+  const int V = VC > 0 ? VC : p.V;
+  const int W = V + 2, W2 = W * W, W3 = W2 * W, VV = V * V;
+  const int SP = V + 1;  // scan-candidate line pitch
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const Row r = carve(V);
+  float* pass = fresh_out ? out : nullptr;
 
-  for (int idx = tid; idx < W3; idx += nt) {
-    float e = enc[idx];
-    float hv = h[idx];
-    bool obs = e < kEncBig * 0.5f;
-    float t = obs ? e : 0.0f;
-    bool fixed = obs && fabsf(t) < p.gamma;
-    bool psrc = t >= p.gamma ? obs : fixed;
-    bool nsrc = t <= -p.gamma ? obs : fixed;
-    lo[idx] = psrc ? hv : kBig;
-    hi[idx] = nsrc ? hv : -kBig;
-    fl[idx] = (fixed ? kFixed : 0) | (psrc ? kPsrc : 0) |
-              (nsrc ? kNsrc : 0) | (obs ? kObs : 0) |
-              (t >= 0.0f ? kNonNeg : 0);
-    if (write_halo) {
-      int j = idx / W2, r = idx - j * W2, i = r / W, k = r - i * W;
-      bool halo = j == 0 || j == W - 1 || i == 0 || i == W - 1 || k == 0 ||
-                  k == W - 1;
-      if (halo) out[idx] = hv;
-    }
-  }
-  __syncthreads();
+  uint32_t pos = 0, neg = 0;  // the first column's side, while loads fly
+  if (side && tid < VV)
+    side_bits(side, (tid / V + 1) * W + tid % V + 1, W2, V, pos, neg);
 
+  // this warp's planes: an even share of the interior ones, the first warp
+  // also plane 0 and the last plane W - 1
+  const int j0 = warp == 0 ? 0 : 1 + warp * V / kWarps;
+  const int j1 = warp == kWarps - 1 ? W : 1 + (warp + 1) * V / kWarps;
+  const bool vec =
+      W2 % 4 == 0 &&
+      (((uintptr_t)h | (uintptr_t)enc | (uintptr_t)pass) & 15) == 0;
+  prepare_range(r, h, enc, pass, j0 * W2, j1 * W2, lane, 32, vec, p.gamma);
   if (with_scans) {
-    // axis 0: k (stride 1), 1: i (stride W), 2: j (stride W^2)
-    const int V2 = V * V;
-    for (int axis = 0; axis < 3; ++axis) {
-      const int stride = axis == 0 ? 1 : (axis == 1 ? W : W2);
-      const int istr = axis == 0 ? 1 : (axis == 1 ? V : V2);  // interior
-      for (int task = tid; task < 2 * V2; task += nt) {
-        const bool neg = task >= V2;
-        const int line = neg ? task - V2 : task;
-        const int a = line / V + 1, b = line % V + 1;
-        int base, ibase;  // position 0 of the line, interior index of p=1
-        if (axis == 0) {  // (j, i) = (a, b)
-          base = a * W2 + b * W;
-          ibase = ((a - 1) * V + (b - 1)) * V;
-        } else if (axis == 1) {  // (j, k) = (a, b)
-          base = a * W2 + b;
-          ibase = (a - 1) * V2 + (b - 1);
-        } else {  // (i, k) = (a, b)
-          base = a * W + b;
-          ibase = (a - 1) * V + (b - 1);
-        }
-        const float* src = neg ? hi : lo;
-        float* dst = neg ? scan_hi : scan_lo;
-        const uint8_t src_bit = neg ? kNsrc : kPsrc;
-        float m = kBig;
-        // forward: candidate at p+1 from the inclusive min up to p
-        for (int q = 0; q < W - 1; ++q) {
-          int idx = base + q * stride;
-          float x = neg ? -src[idx] : src[idx];
-          uint8_t f = fl[idx];
-          bool brk = !(f & src_bit) || (f & kFixed) || q == 0;
-          float pv = __fmul_rn((float)q, p.v1);
-          float y = __fsub_rn(x, pv);
-          m = brk ? y : fminf(m, y);
-          float c = __fadd_rn(__fadd_rn(m, pv), p.v1);
-          if (q + 1 <= V) {
-            int di = ibase + q * istr;  // interior index of p = q + 1
-            dst[di] = axis == 0 ? c : fminf(dst[di], c);
-          }
-        }
-        // backward: candidate at p-1 from the inclusive min from p up
-        for (int q = W - 1; q >= 2; --q) {
-          int idx = base + q * stride;
-          float x = neg ? -src[idx] : src[idx];
-          uint8_t f = fl[idx];
-          bool brk = !(f & src_bit) || (f & kFixed) || q == W - 1;
-          float pv = __fmul_rn((float)q, p.v1);
-          float y = __fadd_rn(x, pv);
-          m = brk ? y : fminf(m, y);
-          float c = __fadd_rn(__fsub_rn(m, pv), p.v1);
-          int di = ibase + (q - 2) * istr;  // interior index of p = q - 1
-          dst[di] = fminf(dst[di], c);
-        }
-      }
-      __syncthreads();
-    }
+    for (int j = j0 > 1 ? j0 : 1; j < j1 && j <= V; ++j)
+      scan_plane<VC>(r, j, lane, V, p.v1);
   }
+  __syncthreads();  // every plane staged and scanned
 
   bool moved = false;
-  for (int t = tid; t < V3; t += nt) {
-    int jj = t / (V * V), r = t - jj * V * V, ii = r / V, kk = r - ii * V;
-    int idx = (jj + 1) * W2 + (ii + 1) * W + (kk + 1);
-    float hv = h[idx];
-    uint8_t f = fl[idx];
-    int s;
-    if (side) {
-      s = side[idx];
-    } else {
-      s = (upd && (f & kObs) && !(f & kFixed)) ? ((f & kNonNeg) ? 1 : -1)
-                                              : 0;
-    }
-    float nv = hv;
-    if (s != 0) {
-      const float* a = s > 0 ? lo : hi;
-      float fc, ec, cc;
-      if (s > 0) {
-        fc = ec = cc = kBig;
-      } else {
-        fc = ec = cc = -kBig;
-      }
-      for (int dj = -1; dj <= 1; ++dj)
-        for (int di = -1; di <= 1; ++di)
-          for (int dk = -1; dk <= 1; ++dk) {
-            int nz = (dj != 0) + (di != 0) + (dk != 0);
-            if (nz == 0) continue;
-            float v = a[idx + dj * W2 + di * W + dk];
-            if (s > 0) {
-              if (nz == 1) fc = fminf(fc, v);
-              else if (nz == 2) ec = fminf(ec, v);
-              else cc = fminf(cc, v);
-            } else {
-              if (nz == 1) fc = fmaxf(fc, v);
-              else if (nz == 2) ec = fmaxf(ec, v);
-              else cc = fmaxf(cc, v);
-            }
-          }
-      if (s > 0) {
-        float cand = fminf(fminf(__fadd_rn(fc, p.v1), __fadd_rn(ec, p.v2)),
-                           __fadd_rn(cc, p.v3));
-        if (with_scans) cand = fminf(cand, scan_lo[t]);
-        nv = cand <= __fadd_rn(hv, p.eps) ? fminf(hv, cand)
-                                          : fminf(p.max_ray, cand);
-      } else {
-        float cand = fmaxf(fmaxf(__fsub_rn(fc, p.v1), __fsub_rn(ec, p.v2)),
-                           __fsub_rn(cc, p.v3));
-        if (with_scans) cand = fmaxf(cand, -scan_hi[t]);
-        nv = cand >= __fsub_rn(hv, p.eps) ? fmaxf(hv, cand)
-                                          : fmaxf(-p.max_ray, cand);
+  for (int col = tid; col < VV; col += kThreads) {
+    const int i = col / V + 1, k = col % V + 1, cb = i * W + k;
+    const int sb = (i - 1) * SP + k - 1;  // scan index of (j = 1, i, k)
+    if (side && col != tid) side_bits(side, cb, W2, V, pos, neg);
+    // j line: this column's own, so no barrier. Its backward candidates
+    // are taken by min into the scan arrays first (in registers they would
+    // spill in K3), its forward ones (ml, mh) during the walk.
+    if (with_scans) {
+      float ml = kBig, mh = kBig;
+#pragma unroll
+      for (int q = W - 1; q >= 2; --q) {
+        const int idx = q * W2 + cb;
+        const float2 x = r.lh[idx];
+        const uint8_t f = r.fl[idx];
+        const bool brk = q == W - 1 || (f & kFixed);
+        const float pv = __fmul_rn((float)q, p.v1);
+        const float yl = __fadd_rn(x.x, pv), yh = __fadd_rn(x.y, pv);
+        ml = (brk || !(f & kPsrc)) ? yl : fminf(ml, yl);
+        mh = (brk || !(f & kNsrc)) ? yh : fminf(mh, yh);
+        const int o = sb + (q - 2) * V * SP;
+        r.scan_lo[o] =
+            fminf(r.scan_lo[o], __fadd_rn(__fsub_rn(ml, pv), p.v1));
+        r.scan_hi[o] =
+            fminf(r.scan_hi[o], __fadd_rn(__fsub_rn(mh, pv), p.v1));
       }
     }
-    if (fabsf(__fsub_rn(nv, hv)) > eps_conv) moved = true;
-    out[idx] = nv;
+    float ml = kBig, mh = kBig, jl = kBig, jh = kBig;
+    Part lo0, hi0, lo1, hi1, lo2, hi2;
+    plane_part(r, cb, W, lo0, hi0);
+    plane_part(r, W2 + cb, W, lo1, hi1);
+#pragma unroll
+    for (int j = 1; j <= V; ++j) {
+      plane_part(r, (j + 1) * W2 + cb, W, lo2, hi2);
+      const int idx = j * W2 + cb;
+      if (with_scans) {  // position j - 1 of the j line: plane 0's centre
+        const uint8_t f = r.fl[idx - W2];
+        const bool brk = j == 1 || (f & kFixed);
+        const float pv = __fmul_rn((float)(j - 1), p.v1);
+        const float yl = __fsub_rn(lo0.c, pv), yh = __fsub_rn(hi0.c, pv);
+        ml = (brk || !(f & kPsrc)) ? yl : fminf(ml, yl);
+        mh = (brk || !(f & kNsrc)) ? yh : fminf(mh, yh);
+        jl = __fadd_rn(__fadd_rn(ml, pv), p.v1);
+        jh = __fadd_rn(__fadd_rn(mh, pv), p.v1);
+      }
+      int s;
+      if (side) {
+        s = (pos >> j & 1) ? 1 : ((neg >> j & 1) ? -1 : 0);
+      } else {
+        const uint8_t f = r.fl[idx];
+        s = (upd && (f & kObs) && !(f & kFixed)) ? ((f & kNonNeg) ? 1 : -1)
+                                                : 0;
+      }
+      if (s != 0) {
+        // the positive side on lo, the negative on -hi, then negated back
+        const Part& a0 = s > 0 ? lo0 : hi0;
+        const Part& a1 = s > 0 ? lo1 : hi1;
+        const Part& a2 = s > 0 ? lo2 : hi2;
+        const float faces = fminf(fminf(a1.f, a0.c), a2.c);
+        const float edges = fminf(fminf(a1.d, a0.f), a2.f);
+        const float corners = fminf(a0.d, a2.d);
+        float cand = fminf(fminf(__fadd_rn(faces, p.v1),
+                                 __fadd_rn(edges, p.v2)),
+                           __fadd_rn(corners, p.v3));
+        if (with_scans) {
+          const int o = sb + (j - 1) * V * SP;
+          cand = fminf(cand, s > 0 ? fminf(r.scan_lo[o], jl)
+                                   : fminf(r.scan_hi[o], jh));
+        }
+        const float hv = r.h[idx];
+        const float sg = s > 0 ? 1.0f : -1.0f;
+        const float hn = sg * hv;
+        const float nv =
+            sg * (cand <= __fadd_rn(hn, p.eps) ? fminf(hn, cand)
+                                               : fminf(p.max_ray, cand));
+        if (fabsf(__fsub_rn(nv, hv)) > eps_conv) moved = true;
+        out[idx] = nv;
+      }
+      lo0 = lo1;
+      hi0 = hi1;
+      lo1 = lo2;
+      hi1 = hi2;
+    }
   }
-  int any = __syncthreads_or(moved);
+  // also the barrier that lets the next row (K3) reuse shared memory
+  const int any = __syncthreads_or(moved);
   if (changed && tid == 0) *changed = any;
 }
 
-__global__ void k2_kernel(const float* esdf, const float* enc,
-                          const int8_t* side, const int32_t* slab_act,
-                          float* out, Params p, int with_scans) {
+template <int VC>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    k2_kernel(const float* esdf, const float* enc, const int8_t* side,
+              const int32_t* slab_act, float* out, Params p,
+              int with_scans) {
   const int W = p.V + 2, W3 = W * W * W;
   const int g = blockIdx.x;
   const size_t off = (size_t)g * W3;
-  if (slab_act[g / 8] == 0) {
-    for (int i = threadIdx.x; i < W3; i += blockDim.x)
-      out[off + i] = esdf[off + i];
+  if (slab_act && slab_act[g / 8] == 0) {
+    copy_row(out + off, esdf + off, W3);
     return;
   }
-  sweep_row(esdf + off, enc + off, side + off, false, out + off, true, p,
-            with_scans != 0, 0.0f, nullptr);
+  sweep_row<VC>(esdf + off, enc + off, side + off, false, out + off, true, p,
+                with_scans != 0, 0.0f, nullptr);
 }
 
 // ---- K3: the sweep loop in one cooperative launch --------------------------
@@ -311,7 +542,8 @@ __device__ void gate_slabs(const int32_t* nsl, const int32_t* upd,
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 2) k3_loop_kernel(
+template <int VC>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) k3_loop_kernel(
     const float* esdf_in, float* fld, const float* enc, const int32_t* nsl,
     const int32_t* upd, int32_t* ws, int32_t* stats, int n_rows, Params p,
     float eps_conv, int max_sweeps, int scan_sweeps, int scan_period) {
@@ -369,8 +601,8 @@ __global__ void __launch_bounds__(kThreads, 2) k3_loop_kernel(
       if (threadIdx.x == 0 && g % 8 == 0) ++comp;
       if (!upd[g]) continue;  // side is zero on the whole row: a pass-through
       const size_t off = (size_t)g * W3;
-      sweep_row(fld + off, enc + off, nullptr, true, fld + off, false, p,
-                scans, eps_conv, &row_changed);
+      sweep_row<VC>(fld + off, enc + off, nullptr, true, fld + off, false,
+                    p, scans, eps_conv, &row_changed);
       if (threadIdx.x == 0 && row_changed) {
         chg[cur * n_slab + slab] = 1;
         changed[cur] = 1;
@@ -404,6 +636,9 @@ cudaError_t set_smem(const void* fn, size_t bytes) {
 
 }  // namespace
 
+// One sweep (K2) on `stream`; a null slab_act runs every slab. The
+// shared-memory attribute is set once per process and V (the kernel, with
+// constant or runtime shapes, follows V).
 extern "C" int esdf_sweep_launch(const void* esdf, const void* enc,
                                  const void* side, const void* slab_act,
                                  void* out, int n_rows, int V, float v1,
@@ -411,14 +646,18 @@ extern "C" int esdf_sweep_launch(const void* esdf, const void* enc,
                                  float max_ray, int with_scans,
                                  void* stream) {
   static int cached_V = -1;
-  Params p{V, v1, v2, v3, gamma, eps, max_ray};
-  size_t smem = smem_bytes(V);
+  if (V < 1 || V > kMaxV) return (int)cudaErrorInvalidValue;
+  const Params p{V, v1, v2, v3, gamma, eps, max_ray};
+  const size_t smem = smem_bytes(V);
+  const auto kernel = V == kFastV    ? k2_kernel<kFastV>
+                      : V == kSmallV ? k2_kernel<kSmallV>
+                                     : k2_kernel<0>;
   if (cached_V != V) {
-    cudaError_t e = set_smem((const void*)k2_kernel, smem);
+    cudaError_t e = set_smem((const void*)kernel, smem);
     if (e != cudaSuccess) return (int)e;
     cached_V = V;
   }
-  k2_kernel<<<n_rows, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<n_rows, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)esdf, (const float*)enc, (const int8_t*)side,
       (const int32_t*)slab_act, (float*)out, p, with_scans);
   return (int)cudaGetLastError();
@@ -436,16 +675,20 @@ extern "C" int esdf_loop_launch(const void* esdf_in, void* fld,
                                 int scan_sweeps, int scan_period,
                                 void* stream) {
   static int cached_V = -1, cached_ctas = 0;
+  if (V < 1 || V > kMaxV) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(V);
+  const auto kernel = V == kFastV    ? k3_loop_kernel<kFastV>
+                      : V == kSmallV ? k3_loop_kernel<kSmallV>
+                                     : k3_loop_kernel<0>;
   if (cached_V != V) {
-    cudaError_t e = set_smem((const void*)k3_loop_kernel, smem);
+    cudaError_t e = set_smem((const void*)kernel, smem);
     if (e != cudaSuccess) return (int)e;
     int dev = 0, sms = 0, per_sm = 0;
     if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return (int)e;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, k3_loop_kernel, kThreads, smem);
+        &per_sm, kernel, kThreads, smem);
     if (e != cudaSuccess) return (int)e;
     if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
     cached_ctas = per_sm * sms;
@@ -463,7 +706,7 @@ extern "C" int esdf_loop_launch(const void* esdf_in, void* fld,
   int32_t* a6 = (int32_t*)stats;
   void* args[] = {&a0, &a1, &a2, &a3, &a4, &a5, &a6, &n_rows, &p,
                   &eps_conv, &max_sweeps, &scan_sweeps, &scan_period};
-  return (int)cudaLaunchCooperativeKernel((const void*)k3_loop_kernel,
+  return (int)cudaLaunchCooperativeKernel((const void*)kernel,
                                           dim3(grid), dim3(kThreads), args,
                                           smem, (cudaStream_t)stream);
 }

@@ -12,18 +12,7 @@ import torch
 
 from taichislam_tpu_torch.core import geometry
 from taichislam_tpu_torch.core.colormap import jet_lut_np
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device a model keeps its state on: ``device`` when one is given,
-    else the CUDA card. Without a card and without a device this raises:
-    the CPU runs only when the caller asks for it."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the models run on the card by "
-                           "default; pass device='cpu' to run on the CPU")
-    return torch.device("cuda")
+from taichislam_tpu_torch.core.device import resolve_device  # noqa: F401
 
 
 class BaseMap:

@@ -19,14 +19,22 @@ package.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+
+from taichislam_tpu_torch.ops.kernels import build
 
 BIG = 1e9
 # participation encoding: enc = TSDF where observed-and-active, ENC_BIG
 # otherwise (far outside any TSDF value)
 ENC_BIG = 1e6
 R = 8  # rows per activity slab
+# the largest V the kernels take (kMaxV in csrc/esdf_sweep.cu): a row's
+# shared memory (row_smem_bytes) must fit in what a CTA may take on the H100
+MAX_V = 20
+MAX_SMEM = 227 * 1024
 
 
 def _f32(x: float) -> float:
@@ -35,7 +43,9 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
+@functools.lru_cache(maxsize=64)
 def _consts(v1, gamma, eps, max_ray):
+    """(v1, v2, v3, gamma, eps, max_ray) rounded to f32 once per set."""
     return (_f32(v1), _f32(np.sqrt(2.0) * v1), _f32(np.sqrt(3.0) * v1),
             _f32(gamma), _f32(eps), _f32(max_ray))
 
@@ -146,6 +156,27 @@ def sweep_math(h, enc, side, *, W: int, v1: float, gamma: float, eps: float,
     return torch.where(side < 0, new_n, new)
 
 
+def row_smem_bytes(V: int) -> int:
+    """Dynamic shared memory of one row in K2 and K3 (``smem_bytes`` in
+    csrc/esdf_sweep.cu): the field, the (lo, -hi) pairs, two scan-candidate
+    arrays of V^2 lines at pitch V + 1 (plus 16 floats each) and a flag
+    byte per voxel, each part 16-byte aligned."""
+    def a16(b):
+        return (b + 15) // 16 * 16
+    W3 = (V + 2) ** 3
+    return (a16(W3 * 4) + a16(W3 * 8) + a16(2 * (V * V * (V + 1) + 16) * 4)
+            + W3)
+
+
+def _check_shape(N, V):
+    if not 1 <= V <= MAX_V:
+        raise ValueError(f"V = {V}: the kernels take V from 1 to {MAX_V} "
+                         f"(a row needs {row_smem_bytes(V)} B of shared "
+                         f"memory, a CTA may take {MAX_SMEM})")
+    if N % R:
+        raise ValueError(f"rows must be a multiple of {R}, got {N}")
+
+
 def _check_field(name, t, N, W, dtype, device):
     if t.shape != (N, W, W * W) or t.dtype != dtype or t.device != device \
             or not t.is_contiguous():
@@ -184,27 +215,26 @@ def esdf_sweep(esdf_h, enc_h, side_h, slab_act=None, *, V: int, v1: float,
                               with_scans=with_scans)
     if esdf_h.device.type != "cuda":
         raise ValueError(f"unsupported device {esdf_h.device}")
-    from taichislam_tpu_torch.ops.kernels import build
-
     N, W, dev = esdf_h.shape[0], V + 2, esdf_h.device
-    if N % R:
-        raise ValueError(f"rows must be a multiple of {R}, got {N}")
+    _check_shape(N, V)
     _check_field("esdf_h", esdf_h, N, W, torch.float32, dev)
     _check_field("enc_h", enc_h, N, W, torch.float32, dev)
     _check_field("side_h", side_h, N, W, torch.int8, dev)
-    if slab_act is None:
-        slab_act = torch.ones((N // R,), dtype=torch.int32, device=dev)
-    if slab_act.shape != (N // R,) or slab_act.dtype != torch.int32 or \
-            slab_act.device != dev:
-        raise ValueError("slab_act: want (N/8,) int32 on the field's device")
-    slab_act = slab_act.contiguous()
-    lib = build.library()
+    act = 0   # a null gate: every slab runs
+    if slab_act is not None:
+        if slab_act.shape != (N // R,) or slab_act.dtype != torch.int32 or \
+                slab_act.device != dev:
+            raise ValueError("slab_act: want (N/8,) int32 on the field's "
+                             "device")
+        if not slab_act.is_contiguous():
+            slab_act = slab_act.contiguous()
+        act = slab_act.data_ptr()
     out = torch.empty_like(esdf_h)
     v1f, v2f, v3f, gf, ef, mf = _consts(v1, gamma, eps, max_ray)
-    err = lib.esdf_sweep_launch(
-        esdf_h.data_ptr(), enc_h.data_ptr(), side_h.data_ptr(),
-        slab_act.data_ptr(), out.data_ptr(), N, V, v1f, v2f, v3f, gf, ef, mf,
-        int(with_scans), torch.cuda.current_stream(dev).cuda_stream)
+    err = build.library().esdf_sweep_launch(
+        esdf_h.data_ptr(), enc_h.data_ptr(), side_h.data_ptr(), act,
+        out.data_ptr(), N, V, v1f, v2f, v3f, gf, ef, mf, int(with_scans),
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "esdf_sweep_launch")
     esdf_sweep.launches += 1
     return out
@@ -321,11 +351,8 @@ def esdf_sweep_loop(esdf_h, enc_hh, nsl27, upd_rows, *, V: int, v1: float,
             scan_period=scan_period)
     if esdf_h.device.type != "cuda":
         raise ValueError(f"unsupported device {esdf_h.device}")
-    from taichislam_tpu_torch.ops.kernels import build
-
     N, W, dev = esdf_h.shape[0], V + 2, esdf_h.device
-    if N % R:
-        raise ValueError(f"rows must be a multiple of {R}, got {N}")
+    _check_shape(N, V)
     _check_field("esdf_h", esdf_h, N, W, torch.float32, dev)
     _check_field("enc_hh", enc_hh, N, W, torch.float32, dev)
     if nsl27.shape != (27, N) or nsl27.device != dev or \

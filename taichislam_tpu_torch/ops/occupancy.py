@@ -40,7 +40,8 @@ from taichislam_tpu_torch.ops.exports import (_active_voxel_mask,
 
 
 def make_octomap_state(cfg: OctomapConfig, device=None) -> GridState:
-    """Channels occupy (f32 counts) and, textured, color (nb, 3, V³)."""
+    """Channels occupy (f32 counts) and, textured, color (nb, 3, V³); on
+    the CUDA card unless ``device`` says otherwise."""
     defs = {"occupy": (torch.float32, ())}
     if cfg.texture_enabled:
         defs["color"] = (torch.float32, (3,))

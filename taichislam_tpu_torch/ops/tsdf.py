@@ -40,7 +40,8 @@ from taichislam_tpu_torch.ops.kernels.seg_accum import (
 
 def make_tsdf_state(cfg: TSDFConfig, device=None) -> GridState:
     """Channels TSDF, W_TSDF, TSDF_observed, occupy and, textured, a
-    (nb, 3, V³) color channel."""
+    (nb, 3, V³) color channel; on the CUDA card unless ``device`` says
+    otherwise."""
     dt = cfg.dtype
     defs = {"TSDF": (dt, ()), "W_TSDF": (dt, ()),
             "TSDF_observed": (torch.int8, ()), "occupy": (torch.int8, ())}

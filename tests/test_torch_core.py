@@ -130,7 +130,8 @@ def test_allocation_and_lookup(n_cand, submap):
     valid = rng.random(n_cand) < 0.9
     defs_j = {"TSDF": (jnp.float16, ())}
     jst = jgrid.make_grid_state(js, defs_j)
-    tst = tgrid.make_grid_state(ts, {"TSDF": (torch.float16, ())})
+    tst = tgrid.make_grid_state(ts, {"TSDF": (torch.float16, ())},
+                                device="cpu")
     for _ in range(2):   # second round re-touches allocated blocks
         jst = jgrid.allocate_blocks(js, jst, jnp.asarray(cand),
                                     jnp.asarray(valid), jnp.int32(submap))
@@ -170,7 +171,8 @@ def test_bridge_round_trip_is_exact():
     jst = jst._replace(channels={
         k: jnp.asarray(rng.standard_normal(v.shape).astype(v.dtype))
         for k, v in jst.channels.items()})
-    back = bridge.grid_state_to_numpy(bridge.grid_state_from_numpy(jst))
+    back = bridge.grid_state_to_numpy(
+        bridge.grid_state_from_numpy(jst, device="cpu"))
     for name in ("table", "block_coords", "block_active", "num_blocks",
                  "alloc_overflow"):
         a, b = np.asarray(getattr(jst, name)), getattr(back, name)
@@ -183,11 +185,12 @@ def test_bridge_round_trip_is_exact():
             "fixed": rng.integers(0, 2, (4, 8)).astype(np.int8),
             "pending": rng.random(4) < 0.5,
             "seen_obs": rng.random((4, 8)) < 0.5}
-    back = bridge.esdf_state_to_numpy(bridge.esdf_state_from_numpy(esdf))
+    back = bridge.esdf_state_to_numpy(
+        bridge.esdf_state_from_numpy(esdf, device="cpu"))
     for k, v in esdf.items():
         assert back[k].dtype == v.dtype and np.array_equal(back[k], v), k
     with pytest.raises(KeyError):
-        bridge.esdf_state_from_numpy({"bogus": esdf["esdf"]})
+        bridge.esdf_state_from_numpy({"bogus": esdf["esdf"]}, device="cpu")
 
 
 def test_synthetic_scene_matches_jax_package():

@@ -1,27 +1,60 @@
-"""The port's models run on the CUDA card unless the caller asks for the CPU.
+"""The port runs on the CUDA card unless the caller asks for the CPU.
 
-Built with no device, DenseTSDF, DenseESDF, Octomap, SubmapMapping and
-DenseTSDF.loadMap target ``cuda``; with no card they raise, naming the
-``device="cpu"`` way out, and never fall back. Whether a card is present is
-decided inside each test (monkeypatched), never at import.
+Built with no device, DenseTSDF, DenseESDF, Octomap, SubmapMapping,
+DenseTSDF.loadMap, the state constructors (make_grid_state, make_tsdf_state,
+make_octomap_state) and the bridge's *_from_numpy functions target ``cuda``;
+with no card they raise, naming the ``device="cpu"`` way out, and never fall
+back. Whether a card is present is decided inside each test
+(monkeypatched), never at import.
 """
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from taichislam_tpu_torch import bridge  # noqa: E402
+from taichislam_tpu_torch.core import grid  # noqa: E402
+from taichislam_tpu_torch.core.config import OctomapConfig, TSDFConfig  # noqa: E402,E501
 from taichislam_tpu_torch.models import base_map  # noqa: E402
 from taichislam_tpu_torch.models import dense_tsdf  # noqa: E402
 from taichislam_tpu_torch.models.dense_esdf import DenseESDF  # noqa: E402
 from taichislam_tpu_torch.models.dense_tsdf import DenseTSDF  # noqa: E402
 from taichislam_tpu_torch.models.octomap import Octomap  # noqa: E402
 from taichislam_tpu_torch.models.submap_mapping import SubmapMapping  # noqa: E402,E501
+from taichislam_tpu_torch.ops import occupancy, tsdf  # noqa: E402
 
 SMALL = dict(map_scale=[3.2, 3.2], voxel_scale=0.1, num_voxel_per_blk_axis=8,
              max_blocks=64, max_submap_num=4)
+CFG = TSDFConfig(**SMALL)
+OCFG = OctomapConfig(map_scale=(3.2, 3.2), voxel_scale=0.1, max_blocks=64,
+                     max_submap_num=4)
 
 
-def _build(kind, tmp_path, **kw):
+def _source(kind):
+    """The numpy input of a bridge function (None for the others)."""
+    if kind == "grid_state_from_numpy":
+        return bridge.grid_state_to_numpy(tsdf.make_tsdf_state(CFG,
+                                                               device="cpu"))
+    if kind == "octomap_state_from_numpy":
+        return bridge.grid_state_to_numpy(
+            occupancy.make_octomap_state(OCFG, device="cpu"))
+    if kind == "esdf_state_from_numpy":
+        return {"esdf": np.zeros((4, 8), np.float32)}
+    return None
+
+
+def _build(kind, tmp_path, src=None, **kw):
+    src = _source(kind) if src is None else src
+    if kind == "make_grid_state":
+        return grid.make_grid_state(CFG.grid, {"TSDF": (torch.float32, ())},
+                                    **kw)
+    if kind == "make_tsdf_state":
+        return tsdf.make_tsdf_state(CFG, **kw)
+    if kind == "make_octomap_state":
+        return occupancy.make_octomap_state(OCFG, **kw)
+    if kind.endswith("_from_numpy"):
+        return getattr(bridge, kind)(src, **kw)
     if kind == "DenseTSDF":
         return DenseTSDF(**SMALL, **kw)
     if kind == "DenseESDF":
@@ -38,7 +71,20 @@ def _build(kind, tmp_path, **kw):
     return DenseTSDF.loadMap(str(path), **kw)
 
 
-KINDS = ["DenseTSDF", "DenseESDF", "Octomap", "SubmapMapping", "loadMap"]
+def _device(obj):
+    """The device an object built by _build keeps its state on."""
+    if isinstance(obj, grid.GridState):
+        return obj.table.device
+    if isinstance(obj, dict):
+        return next(iter(obj.values())).device
+    return obj.device
+
+
+MODELS = ["DenseTSDF", "DenseESDF", "Octomap", "SubmapMapping", "loadMap"]
+STATE = ["make_grid_state", "make_tsdf_state", "make_octomap_state",
+         "grid_state_from_numpy", "octomap_state_from_numpy",
+         "esdf_state_from_numpy"]
+KINDS = MODELS + STATE
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -52,16 +98,35 @@ def test_no_card_and_no_device_raises(kind, tmp_path, monkeypatch):
 def test_cpu_on_request(kind, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     m = _build(kind, tmp_path, device="cpu")
-    assert m.device == torch.device("cpu")
+    assert _device(m) == torch.device("cpu")
 
 
 class _Asked(Exception):
     pass
 
 
-def test_default_asks_for_the_card(monkeypatch):
-    """With a card present and no device given, a model puts its state on
-    ``cuda``: the state allocation is asked for that device."""
+@pytest.mark.parametrize("kind", ["models"] + STATE)
+def test_default_asks_for_the_card(kind, tmp_path, monkeypatch):
+    """With a card present and no device given, a model or a state
+    constructor puts its state on ``cuda``: the first allocation is asked
+    for that device."""
+    if kind != "models":
+        src = _source(kind)
+        asked = []
+
+        def to_tensor(a, device):
+            asked.append(torch.device(device))
+            raise _Asked
+
+        def zeros(*a, device=None, **kw):
+            to_tensor(None, device)
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch, "zeros", zeros)
+        monkeypatch.setattr(bridge, "_to_tensor", to_tensor)
+        with pytest.raises(_Asked):
+            _build(kind, tmp_path, src)
+        assert asked == [torch.device("cuda")]
+        return
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert base_map.resolve_device(None) == torch.device("cuda")
     assert base_map.resolve_device("cpu") == torch.device("cpu")

@@ -74,7 +74,7 @@ def _compare_update(cfg_j, cfg_t, budget, jstate, e0, f0, **kw):
     tkw = {k: (None if v is None else torch.from_numpy(np.array(v)))
            for k, v in kw.items()}
     got = te.esdf_update(cfg_t, budget, CAP,
-                         bridge.grid_state_from_numpy(jstate),
+                         bridge.grid_state_from_numpy(jstate, device="cpu"),
                          torch.from_numpy(np.array(e0)),
                          torch.from_numpy(np.array(f0)), 0, **tkw)
     we, wf, wp, ws, wc, wo = (np.asarray(a) for a in want)
@@ -158,7 +158,8 @@ def test_seed_dirty_matches_jax(slope, cap):
     cfg_t = dataclasses.replace(TCFG, esdf_seed_eps_voxels=0.25)
     want = je.esdf_seed_dirty(cfg_j, state, jnp.asarray(seen_t),
                               jnp.asarray(seen_o), jnp.asarray(touched), cap)
-    got = te.esdf_seed_dirty(cfg_t, bridge.grid_state_from_numpy(state),
+    got = te.esdf_seed_dirty(cfg_t,
+                             bridge.grid_state_from_numpy(state, device="cpu"),
                              torch.from_numpy(seen_t.copy()),
                              torch.from_numpy(seen_o.copy()),
                              torch.from_numpy(touched.copy()), cap)
@@ -173,7 +174,7 @@ def test_seed_dirty_matches_jax(slope, cap):
 
 def test_working_set_helpers_match_jax(slope):
     state = slope[0]
-    ps = bridge.grid_state_from_numpy(state)
+    ps = bridge.grid_state_from_numpy(state, device="cpu")
     spec = JCFG.grid
     nb = int(state.num_blocks)
     rows = np.arange(nb + 3, dtype=np.int32)
@@ -207,12 +208,14 @@ def test_working_set_helpers_match_jax(slope):
                                   te._shell_mask(V, torch.device("cpu")))
 
 
+@pytest.mark.parametrize("V", [8, 16])
 @pytest.mark.parametrize("with_scans", [False, True])
-def test_sweep_twin_matches_pallas_kernel(with_scans):
-    """K2 twin against esdf_sweep_pallas (interpret) on random fields."""
-    V, N = 8, 16
+def test_sweep_twin_matches_pallas_kernel(with_scans, V):
+    """K2 twin against esdf_sweep_pallas (interpret) on random fields, at a
+    small V and at the main path's V = 16."""
+    N = 16
     W = V + 2
-    rng = np.random.default_rng(int(with_scans))
+    rng = np.random.default_rng(int(with_scans) + V)
     tsdf = rng.uniform(-0.5, 0.5, (N, W, W * W)).astype(np.float32)
     part = rng.random(tsdf.shape) < 0.85
     enc = np.where(part, tsdf, 1e6).astype(np.float32)
@@ -280,3 +283,17 @@ def test_loop_gates_sparse_equal_dense(seed):
         for a, b in zip(want, got):
             np.testing.assert_array_equal(a, b.numpy())
     assert want[1].any() or not upd.any()
+
+
+def test_max_v_is_the_largest_row_that_fits():
+    """MAX_V, which the card wrappers check, is kMaxV in the CUDA source
+    and the largest V whose row's shared memory fits in a CTA."""
+    import re
+    from pathlib import Path
+    src = (Path(tk.__file__).resolve().parents[2] / "csrc" /
+           "esdf_sweep.cu").read_text()
+    assert int(re.search(r"constexpr int kMaxV = (\d+);", src).group(1)) \
+        == tk.MAX_V
+    assert tk.row_smem_bytes(tk.MAX_V) <= tk.MAX_SMEM < \
+        tk.row_smem_bytes(tk.MAX_V + 1)
+    assert tk.row_smem_bytes(16) == 110760   # 108 KB: two CTAs per SM

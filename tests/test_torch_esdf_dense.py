@@ -55,7 +55,7 @@ def _compare(jstate, e0, f0, dims=DIMS, budget=64, **kw):
         JCFG, budget, dims, jstate, jnp.asarray(e0), jnp.asarray(f0),
         jnp.int32(0), **{k: jnp.asarray(v) for k, v in kw.items()})
     got = te.esdf_update_dense(
-        TCFG, budget, dims, bridge.grid_state_from_numpy(jstate),
+        TCFG, budget, dims, bridge.grid_state_from_numpy(jstate, device="cpu"),
         torch.from_numpy(np.array(e0)), torch.from_numpy(np.array(f0)), 0,
         **{k: torch.from_numpy(np.array(v)) for k, v in kw.items()})
     we, wf, wp, ws, wc, wo = (np.asarray(a) for a in want)
@@ -135,7 +135,8 @@ def test_esdf_slice_export_matches_jax(scene, z, capacity):
                                 jnp.asarray(base_T), jnp.int32(0),
                                 jnp.float32(z), jnp.float32(0.5))
     got = te.esdf_slice_export(TCFG, capacity, 128,
-                               bridge.grid_state_from_numpy(state),
+                               bridge.grid_state_from_numpy(state,
+                                                            device="cpu"),
                                torch.from_numpy(e), torch.from_numpy(part),
                                torch.from_numpy(base_R),
                                torch.from_numpy(base_T), 0, z, 0.5)

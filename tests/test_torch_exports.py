@@ -70,7 +70,7 @@ def scene(request):
 
 
 def _port_state(js):
-    return bridge.grid_state_from_numpy(js)
+    return bridge.grid_state_from_numpy(js, device="cpu")
 
 
 def _close(want, got):
@@ -151,7 +151,7 @@ def test_sparse_scatter_matches_jax(scene):
     want = jx.sparse_scatter(cj, jt.make_tsdf_state(cj), jnp.int32(2),
                              *map(jnp.asarray, args), jnp.int32(kept))
     got = tx.sparse_scatter(ct, bridge.grid_state_from_numpy(
-        jt.make_tsdf_state(cj)), 2,
+        jt.make_tsdf_state(cj), device="cpu"), 2,
         *(torch.from_numpy(np.array(a)) for a in args), int(kept))
     got = bridge.grid_state_to_numpy(got)
     for name in ("table", "block_coords", "num_blocks"):

@@ -89,8 +89,9 @@ def _run_both(V, textured, bcap=96, only=None, **glob):
         only_submap=None if only is None else jnp.int32(only))
     got, gst = tf.fuse_submaps(
         tsub, tglob, bcap,
-        bridge.grid_state_from_numpy(jt.make_tsdf_state(jglob)),
-        bridge.grid_state_from_numpy(js_sub), torch.from_numpy(bR),
+        bridge.grid_state_from_numpy(jt.make_tsdf_state(jglob), device="cpu"),
+        bridge.grid_state_from_numpy(js_sub, device="cpu"),
+        torch.from_numpy(bR),
         torch.from_numpy(bT), only_submap=only)
     return want, wst, bridge.grid_state_to_numpy(got), gst
 
@@ -149,7 +150,8 @@ def test_splat_contributions_match_jax():
     want = jax.jit(jf.splat_contributions, static_argnums=(0, 1, 2))(
         jsub, jglob, 96, js_sub, jnp.asarray(bR), jnp.asarray(bT))
     got = tf.splat_contributions(tsub, tglob, 96,
-                                 bridge.grid_state_from_numpy(js_sub),
+                                 bridge.grid_state_from_numpy(
+                                     js_sub, device="cpu"),
                                  torch.from_numpy(bR), torch.from_numpy(bT))
     for k in ("blin", "ok", "intra", "occ", "kept", "dropped"):
         np.testing.assert_array_equal(np.asarray(getattr(want, k)),

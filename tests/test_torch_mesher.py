@@ -84,7 +84,8 @@ def test_extract_mesh_matches_jax(scene, step, masked):
                             block_mask=None if mask is None
                             else jnp.asarray(mask))
     got = tmc.extract_mesh(ct, 4096, step, 64,
-                           bridge.grid_state_from_numpy(st), 0, 0.25,
+                           bridge.grid_state_from_numpy(st, device="cpu"),
+                           0, 0.25,
                            block_mask=None if mask is None
                            else torch.from_numpy(mask))
     _compare_mesh(want, got)
@@ -97,7 +98,8 @@ def test_extract_mesh_triangle_cap_matches_jax(scene):
     cj, ct, st = scene
     want = jmc.extract_mesh(cj, 64, 1, 64, st, jnp.int32(0),
                             jnp.float32(0.25))
-    got = tmc.extract_mesh(ct, 64, 1, 64, bridge.grid_state_from_numpy(st),
+    got = tmc.extract_mesh(ct, 64, 1, 64,
+                           bridge.grid_state_from_numpy(st, device="cpu"),
                            0, 0.25)
     _compare_mesh(want, got)
     assert int(got["total_triangles"]) > 64 == int(got["num_triangles"])
@@ -108,7 +110,8 @@ def test_dilate_blocks_matches_jax(scene):
     bitmap = np.zeros(KW["max_blocks"] + 1, bool)
     bitmap[[0, 3, 7]] = True
     want = jmc.dilate_blocks(cj, st, jnp.int32(0), jnp.asarray(bitmap))
-    got = tmc.dilate_blocks(ct, bridge.grid_state_from_numpy(st), 0,
+    got = tmc.dilate_blocks(ct, bridge.grid_state_from_numpy(st,
+                                                             device="cpu"), 0,
                             torch.from_numpy(bitmap))
     np.testing.assert_array_equal(np.asarray(want), got.numpy())
     assert got.sum() > 3
@@ -138,7 +141,7 @@ def test_mesher_model_matches_jax():
               texture_enabled=True)
     jm, tm = JMap(**kw), TMap(**kw, device=DEV)
     jm.init_sphere()
-    tm.state = bridge.grid_state_from_numpy(jm.state)
+    tm.state = bridge.grid_state_from_numpy(jm.state, device="cpu")
     want = JMesher(jm, max_triangles=20000, delivery="f32")
     got = TMesher(tm, max_triangles=20000, delivery="f32")
     want.generate_mesh(1)

@@ -149,7 +149,7 @@ def test_octomap_state_bridge_round_trip():
     jm, tm = _pair(texture_enabled=True)
     R, T, depth, tex = _frames(1)[0]
     jm.recast_depth_to_map(R, T, depth, tex)
-    ts = bridge.octomap_state_from_numpy(jm.state)
+    ts = bridge.octomap_state_from_numpy(jm.state, device="cpu")
     back = bridge.grid_state_to_numpy(ts)
     _same_state(jm.state, ts)
     for k, v in back.channels.items():
@@ -157,7 +157,7 @@ def test_octomap_state_bridge_round_trip():
         np.testing.assert_array_equal(np.asarray(jm.state.channels[k]), v)
     with pytest.raises(TypeError):
         bridge.octomap_state_from_numpy(back._replace(channels={
-            "occupy": back.channels["occupy"].astype(np.int8)}))
+            "occupy": back.channels["occupy"].astype(np.int8)}), device="cpu")
 
 
 def test_octomap_config_matches_jax():
@@ -190,7 +190,7 @@ def test_scatter_hits_functional_matches_jax():
     cfg = OctomapConfig(**{k: getattr(jm.cfg, k) for k in (
         "map_scale", "min_occupy_thres", "texture_enabled", "max_blocks",
         "max_submap_num", "K")}, voxel_scale=0.1)
-    got = to.integrate_pcl(cfg, to.make_octomap_state(cfg),
+    got = to.integrate_pcl(cfg, to.make_octomap_state(cfg, device="cpu"),
                            torch.from_numpy(xyz), torch.from_numpy(rgb),
                            torch.from_numpy(R), torch.from_numpy(T), 2)
     _same_state(want, got)

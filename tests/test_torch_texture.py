@@ -81,7 +81,7 @@ def _assert_states_match(js, ps, atol=2e-3):
 def test_textured_integrate_depth_matches_jax(dtype, same_proj):
     kw = dict(BASE, storage_dtype=dtype, color_same_proj=same_proj)
     cj, ct = JConfig(pallas_accum="on", **kw), TConfig(**kw)
-    js, ps = jt.make_tsdf_state(cj), tt.make_tsdf_state(ct)
+    js, ps = jt.make_tsdf_state(cj), tt.make_tsdf_state(ct, device="cpu")
     for depth, tex, R, T in _frames(2):
         js, jstats = jt.integrate_depth(
             cj, js, jnp.asarray(depth), jnp.asarray(tex), jnp.asarray(R),
@@ -146,7 +146,7 @@ def test_textured_integrate_pcl_matches_jax():
                                   jnp.asarray(xyz), jnp.asarray(rgb),
                                   jnp.asarray(R), jnp.asarray(T),
                                   jnp.int32(0))
-    ps, pstats = tt.integrate_pcl(ct, tt.make_tsdf_state(ct),
+    ps, pstats = tt.integrate_pcl(ct, tt.make_tsdf_state(ct, device="cpu"),
                                   torch.from_numpy(xyz),
                                   torch.from_numpy(rgb), torch.from_numpy(R),
                                   torch.from_numpy(T), 0)
@@ -163,7 +163,7 @@ def test_init_sphere_matches_jax(textured):
               texture_enabled=textured)
     cj, ct = JConfig(**kw), TConfig(**kw)
     js = jt.init_sphere(cj, jt.make_tsdf_state(cj), 0)
-    ps = tt.init_sphere(ct, tt.make_tsdf_state(ct), 0)
+    ps = tt.init_sphere(ct, tt.make_tsdf_state(ct, device="cpu"), 0)
     ps = bridge.grid_state_to_numpy(ps)
     for name in ("table", "num_blocks", "block_coords"):
         np.testing.assert_array_equal(np.asarray(getattr(js, name)),
@@ -185,7 +185,8 @@ def test_bridge_carries_color_both_ways():
                                jnp.asarray(tex), jnp.asarray(R),
                                jnp.asarray(T), jnp.asarray(K),
                                jnp.asarray(K), jnp.int32(0))
-    back = bridge.grid_state_to_numpy(bridge.grid_state_from_numpy(js))
+    back = bridge.grid_state_to_numpy(
+        bridge.grid_state_from_numpy(js, device="cpu"))
     a = np.asarray(js.channels["color"])
     assert back.channels["color"].shape == a.shape == (65, 3, 512)
     np.testing.assert_array_equal(back.channels["color"], a)
@@ -210,7 +211,8 @@ def test_color_rows_past_the_image_clamp_as_jax():
         32, 24)[0]
     assert int(rows.max()) >= 24
     ps, _ = tt.integrate_depth(
-        ct, tt.make_tsdf_state(ct), torch.from_numpy(depth.astype(np.int32)),
+        ct, tt.make_tsdf_state(ct, device="cpu"),
+        torch.from_numpy(depth.astype(np.int32)),
         torch.from_numpy(tex), torch.from_numpy(R), torch.from_numpy(T),
         torch.from_numpy(K), torch.from_numpy(kc), 0)
     _assert_states_match(js, bridge.grid_state_to_numpy(ps))

@@ -56,7 +56,7 @@ def _run_jax(cfg, frames):
 
 
 def _run_port(cfg, frames):
-    st = tt.make_tsdf_state(cfg)
+    st = tt.make_tsdf_state(cfg, device="cpu")
     stats = []
     for depth, R, T in frames:
         st, s = tt.integrate_depth(cfg, st,

@@ -14,6 +14,7 @@ import functools
 import numpy as np
 import torch
 
+from taichislam_tpu_torch.core.device import resolve_device
 from taichislam_tpu_torch.core.geometry import inv
 
 # matplotlib's _jet_data (x, value) breakpoints per channel
@@ -27,15 +28,47 @@ _MPL_N = 256
 
 
 @functools.lru_cache(maxsize=1)
+def _jet_base() -> np.ndarray:
+    """matplotlib's quantized jet: (256, 3) float64, interpolated between
+    the segment points with matplotlib's own arithmetic."""
+    xind = (_MPL_N - 1) * np.linspace(0.0, 1.0, _MPL_N)
+    cols = []
+    for seg in _JET:
+        x = np.array([p[0] for p in seg]) * (_MPL_N - 1)
+        y = np.array([p[1] for p in seg])
+        ind = np.searchsorted(x, xind)[1:-1]
+        dist = (xind[1:-1] - x[ind - 1]) / (x[ind] - x[ind - 1])
+        cols.append(np.clip(np.concatenate(
+            [[y[0]], dist * (y[ind] - y[ind - 1]) + y[ind - 1], [y[-1]]]),
+            0.0, 1.0))
+    return np.stack(cols, axis=1)
+
+
+@functools.lru_cache(maxsize=1)
 def jet_lut_np(n: int = 1024) -> np.ndarray:
     """(n, 3) float32 jet LUT, entry i = jet(i / n)."""
-    x = np.linspace(0.0, 1.0, _MPL_N)
-    base = np.stack([np.clip(np.interp(x, [p[0] for p in seg],
-                                       [p[1] for p in seg]), 0.0, 1.0)
-                     for seg in _JET], axis=1)
     idx = np.minimum((np.arange(n) / float(n) * _MPL_N).astype(np.int64),
                      _MPL_N - 1)
-    return base[idx].astype(np.float32)
+    return _jet_base()[idx].astype(np.float32)
+
+
+def jet_lut(n: int = 1024, device=None) -> torch.Tensor:
+    """The jet LUT as an (n, 3) float32 tensor on ``device`` (the CUDA card
+    unless given, see :func:`resolve_device`)."""
+    return torch.from_numpy(jet_lut_np(n).copy()).to(resolve_device(device))
+
+
+def jet_rgba_np(x: np.ndarray) -> np.ndarray:
+    """(N, 4) float64 RGBA of jet at float ``x`` in [0, 1], as matplotlib's
+    ``cm.jet(x)`` gives it: entry ``int(x * 256)`` of the quantized map
+    (computed in x's dtype), 1.0 going to the last entry, alpha 1."""
+    x = np.asarray(x)
+    xa = x * x.dtype.type(_MPL_N)
+    xa = np.where(xa == _MPL_N, _MPL_N - 1, xa)
+    idx = np.clip(xa, 0, _MPL_N - 1).astype(np.int64)
+    rgba = np.ones(x.shape + (4,), np.float64)
+    rgba[..., :3] = _jet_base()[idx]
+    return rgba
 
 
 @functools.lru_cache(maxsize=4)

@@ -24,6 +24,18 @@ def compact_mask(mask: torch.Tensor, capacity: int):
     return pos, torch.clamp(count, max=capacity), count
 
 
+def compact(values: torch.Tensor, mask: torch.Tensor, capacity: int,
+            fill_value=0):
+    """Compact ``values`` (leading dim = mask size) where ``mask`` holds,
+    in index order. Returns (out (capacity, ...), kept, total); ``total``
+    may exceed ``capacity`` (overflow detection)."""
+    pos, kept, total = compact_mask(mask, capacity)
+    out = torch.full((capacity + 1,) + tuple(values.shape[1:]), fill_value,
+                     dtype=values.dtype, device=values.device)
+    out[pos.long()] = values    # dropped elements land on the extra row
+    return out[:capacity], kept, total
+
+
 def compact_sort(mask: torch.Tensor, capacity: int, operands, fills):
     """Stable compaction of parallel 1-d ``operands`` where ``mask`` holds:
     survivors move to the front in index order (the order of the JAX

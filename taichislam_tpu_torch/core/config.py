@@ -1,7 +1,7 @@
 """Static configuration for the block voxel grid and the TSDF map.
 
-Field names and defaults are those of ``taichislam_tpu.core.config`` so one
-set of keyword arguments builds the configuration of either package. The
+Field names and defaults are those of the JAX package's ``core/config.py`` so
+one set of keyword arguments builds the configuration of either package. The
 ``pallas_*`` and ``esdf_loop_kernel`` fields are kept for that name
 compatibility only: in this package they select nothing (there is one
 accumulation path and the sweep dispatch follows ``max_sweeps``).
@@ -74,6 +74,15 @@ class GridSpec:
     def origin_voxel(self) -> Tuple[int, int, int]:
         """Voxel index of the grid's lower corner (the negative offset)."""
         return (-(self.N // 2), -(self.N // 2), -(self.Nz // 2))
+
+    @property
+    def voxel_bounds_lo(self) -> Tuple[int, int, int]:
+        return self.origin_voxel
+
+    @property
+    def voxel_bounds_hi(self) -> Tuple[int, int, int]:
+        o = self.origin_voxel
+        return (o[0] + self.N, o[1] + self.N, o[2] + self.Nz)
 
 
 @dataclasses.dataclass(frozen=True)

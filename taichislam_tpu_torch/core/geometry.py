@@ -1,6 +1,6 @@
 """Coordinate, camera and pose math shared by the map types.
 
-Conventions are those of ``taichislam_tpu.core.geometry``: voxel index =
+Conventions are those of the JAX package's ``core/geometry.py``: voxel index =
 round(xyz / voxel_scale) with ties away from zero, pinhole back-projection
 with ``i`` the image column and ``j`` the row, ``sign(0) == 0``.
 
@@ -53,9 +53,34 @@ def round_half_away(x: torch.Tensor) -> torch.Tensor:
     return torch.trunc(x + torch.where(x >= 0, 0.5, -0.5))
 
 
+def xyz_to_ijk(xyz: torch.Tensor, voxel_scale: float,
+               reciprocal: bool = False) -> torch.Tensor:
+    """World position -> signed int32 voxel index, round(xyz / voxel_scale)
+    ties away from zero. The JAX function divides: called eagerly that is
+    a true division (a tensor divisor here, which CUDA does not turn into a
+    reciprocal); inside its jitted callers (the raycasts) XLA multiplies by
+    the f32 reciprocal, which ``reciprocal`` selects. The two differ near
+    half-voxel ties."""
+    if reciprocal:
+        q = xyz * inv(voxel_scale)
+    else:
+        q = xyz / torch.tensor(voxel_scale, dtype=xyz.dtype,
+                               device=xyz.device)
+    return round_half_away(q).to(torch.int32)
+
+
 def ijk_to_xyz(ijk: torch.Tensor, voxel_scale: float) -> torch.Tensor:
     """Voxel index -> world position of the voxel centre."""
     return ijk.float() * voxel_scale
+
+
+def unproject_point_dep(i, j, dep, K_dep):
+    """Back-project pixel (col ``i``, row ``j``) at depth ``dep`` (m) with
+    the flattened 3x3 intrinsic ``K_dep``: (..., 3) camera-frame points."""
+    fx, cx, fy, cy = K_dep[0], K_dep[2], K_dep[4], K_dep[5]
+    x = (i.float() - cx) * dep / fx
+    y = (j.float() - cy) * dep / fy
+    return torch.stack([x, y, dep], dim=-1)
 
 
 def color_ind_from_depth_pt(i, j, K_dep, K_color, w: int, h: int):
@@ -79,6 +104,17 @@ def texture_at(texture: torch.Tensor, row, col) -> torch.Tensor:
     h, w = texture.shape[0], texture.shape[1]
     return texture[row.long().clamp(0, h - 1),
                    col.long().clamp(0, w - 1), :].float()
+
+
+def transform_points(R, T, pts: torch.Tensor) -> torch.Tensor:
+    """Rigid transform of (..., 3) points: R @ p + T."""
+    return rotate_points(R, pts) + torch.as_tensor(T, dtype=pts.dtype,
+                                                   device=pts.device)
+
+
+def rotate_points(R, pts: torch.Tensor) -> torch.Tensor:
+    """Rotation of (..., 3) points: R @ p."""
+    return pts @ torch.as_tensor(R, dtype=pts.dtype, device=pts.device).T
 
 
 def convert_by_base(base_R, base_T, R, T):

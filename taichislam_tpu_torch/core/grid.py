@@ -1,6 +1,6 @@
 """Block voxel grid: direct-mapped block table plus flat channel arrays.
 
-Same layout as ``taichislam_tpu.core.grid``: an int32 table over the
+Same layout as the JAX package's ``core/grid.py``: an int32 table over the
 bounded block-coordinate space (-1 = unallocated), channels of shape
 ``(max_blocks + 1[, C], V^3)`` whose last row is a garbage row, and
 allocation as an exclusive prefix sum (deterministic, no atomics).
@@ -61,6 +61,13 @@ def make_grid_state(spec: GridSpec, channel_defs: Dict[str, Tuple],
         alloc_overflow=torch.zeros((), **i32),
         channels=channels,
     )
+
+
+def voxel_to_block(spec: GridSpec, s, ijk: torch.Tensor):
+    """Signed voxel coords (..., 3) -> (block_lin, intra_lin, in_bounds);
+    ``s`` broadcasts to ``ijk[..., 0]``; ``block_lin`` is -1 out of
+    bounds."""
+    return voxel_to_block_c(spec, s, ijk[..., 0], ijk[..., 1], ijk[..., 2])
 
 
 def voxel_to_block_c(spec: GridSpec, s, vi, vj, vk):
@@ -180,6 +187,15 @@ def reset_grid(state: GridState) -> GridState:
                               state.alloc_overflow))
 
 
+def channel_flat(channel: torch.Tensor) -> torch.Tensor:
+    """A channel (B[, C], V^3) viewed flat."""
+    return channel.reshape(-1)
+
+
+def channel_unflat(flat: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return flat.reshape(like.shape)
+
+
 def comp_flat_index(spec: GridSpec, slot, intra_lin, comp: int):
     """Address component ``comp`` of a (nb, 3, V^3) channel viewed flat."""
     return (slot * 3 + comp) * spec.voxels_per_block + intra_lin
@@ -195,6 +211,47 @@ def gather_channel(channel: torch.Tensor, flat_idx: torch.Tensor
     vals = flat[torch.where(ok, idx, torch.zeros_like(idx))]
     return torch.where(ok, vals, torch.zeros((), dtype=flat.dtype,
                                              device=flat.device))
+
+
+def _in_range(channel, flat_idx, values):
+    """Flat indices inside ``channel`` (negative ones counted from the end,
+    as JAX's indexing does) and their values; the rest are dropped."""
+    n = channel.numel()
+    idx = flat_idx.reshape(-1).long()
+    idx = torch.where(idx < 0, idx + n, idx)
+    ok = (idx >= 0) & (idx < n)
+    vals = torch.broadcast_to(values, flat_idx.shape).reshape(-1)
+    return idx[ok], vals[ok].to(channel.dtype)
+
+
+def scatter_add(channel: torch.Tensor, flat_idx: torch.Tensor,
+                values: torch.Tensor) -> torch.Tensor:
+    """``channel.flat[flat_idx] += values``, in place; indices outside the
+    channel are dropped."""
+    idx, vals = _in_range(channel, flat_idx, values)
+    channel.view(-1).index_add_(0, idx, vals)
+    return channel
+
+
+def scatter_set(channel: torch.Tensor, flat_idx: torch.Tensor,
+                values: torch.Tensor) -> torch.Tensor:
+    """``channel.flat[flat_idx] = values``, in place; indices outside the
+    channel are dropped. Of lanes that share an index the last one wins,
+    as in JAX's sequential CPU scatter."""
+    idx, vals = _in_range(channel, flat_idx, values)
+    key, perm = torch.sort(idx, stable=True)
+    last = torch.ones_like(key, dtype=torch.bool)
+    last[:-1] = key[1:] != key[:-1]
+    channel.view(-1)[key[last]] = vals[perm[last]]
+    return channel
+
+
+def clear_garbage_row(state: GridState) -> GridState:
+    """Zero every channel's garbage slot, in place, so writes it absorbed
+    never reach an export."""
+    for v in state.channels.values():
+        v[-1].zero_()
+    return state
 
 
 def scatter_max(channel: torch.Tensor, flat_idx: torch.Tensor,

@@ -70,6 +70,15 @@
 //   adjacency products without their O(n_slab^2) tables. K3 calls the row
 //   body in place: the row is staged into shared memory before any of its
 //   voxels is written.
+// - V above kMaxV (a row no longer fits in a CTA's shared memory) takes a
+//   third build of the same body, VC = kGlobalV: the row's scratch (the
+//   same five arrays) is a slice per CTA of a workspace in device memory
+//   that the wrapper allocates, the k and i line scans read and write that
+//   scratch instead of line arrays in registers, and the update side is
+//   read per voxel (a column's side bits would not fit in 32 bits past
+//   V = 30). K2's CTAs then take rows by grid stride, so the workspace is
+//   one slice per resident CTA, as K3's is. The arithmetic is sweep_row's,
+//   step for step; the scratch traffic goes through L1 and L2.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -91,6 +100,8 @@ constexpr size_t kMaxSmem = 227 * 1024;
 // the V compiled with constant shapes: the main path's, and the block size
 // of the examples and tests
 constexpr int kFastV = 16, kSmallV = 8;
+// the VC of the build whose row scratch lives in device memory (V > kMaxV)
+constexpr int kGlobalV = -1;
 constexpr int kLoads = 4;      // float4 chunks a lane has in flight at once
 
 // flag bits per voxel
@@ -121,6 +132,11 @@ static_assert(smem_bytes(kMaxV) <= kMaxSmem &&
                   smem_bytes(kMaxV + 1) > kMaxSmem,
               "kMaxV must be the largest V whose row fits in shared memory");
 
+// one CTA's slice of the device-memory scratch of the kGlobalV build
+__host__ __device__ constexpr size_t scratch_bytes(int V) {
+  return align16(smem_bytes(V));
+}
+
 struct Row {
   float* h;        // the field row (W^3)
   float2* lh;      // (lo, -hi) of every voxel
@@ -129,17 +145,32 @@ struct Row {
   uint8_t* fl;     // flag bits (W^3)
 };
 
-__device__ inline Row carve(int V) {
-  extern __shared__ __align__(16) unsigned char smem[];
+// The row's arrays laid out from `base` (16-byte aligned).
+__device__ inline Row carve_at(unsigned char* base, int V) {
   const size_t W = V + 2, W3 = W * W * W;
   const size_t o_lh = align16(W3 * 4), o_s = o_lh + align16(W3 * 8);
   Row r;
-  r.h = reinterpret_cast<float*>(smem);
-  r.lh = reinterpret_cast<float2*>(smem + o_lh);
-  r.scan_lo = reinterpret_cast<float*>(smem + o_s);
+  r.h = reinterpret_cast<float*>(base);
+  r.lh = reinterpret_cast<float2*>(base + o_lh);
+  r.scan_lo = reinterpret_cast<float*>(base + o_s);
   r.scan_hi = r.scan_lo + scan_floats(V);
-  r.fl = smem + o_s + align16(2 * scan_floats(V) * 4);
+  r.fl = base + o_s + align16(2 * scan_floats(V) * 4);
   return r;
+}
+
+__device__ inline Row carve(int V) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  return carve_at(smem, V);
+}
+
+// The row's arrays of build VC: in shared memory, or for kGlobalV in this
+// CTA's slice of the device-memory scratch.
+template <int VC>
+__device__ inline Row row_arrays(int V, unsigned char* scratch) {
+  if constexpr (VC == kGlobalV)
+    return carve_at(scratch, V);
+  else
+    return carve(V);
 }
 
 __device__ void copy_row(float* dst, const float* src, int n) {
@@ -263,6 +294,57 @@ __device__ __forceinline__ void line_scan(const float* x, const uint8_t* f,
   }
 }
 
+// line_scan for the kGlobalV build: the same steps, position q of the
+// line read at scratch index base + q * stride and candidate p - 1 kept at
+// o[(p - 1) * ostride] (stored when `first`, else taken by min), with no
+// line arrays. min is exact, so taking each direction's candidate by min
+// into o equals taking their min first.
+__device__ void line_scan_gm(const float* comp, const uint8_t* fl, int base,
+                             int stride, int sg, int V, float v1, float* o,
+                             int ostride, bool first) {
+  const int W = V + 2;
+  const uint8_t src = sg ? kNsrc : kPsrc;
+  float m = kBig;
+  for (int q = 0; q < W - 2; ++q) {
+    const int a = base + q * stride;
+    const uint8_t f = fl[a];
+    const float pv = __fmul_rn((float)q, v1);
+    const float y = __fsub_rn(comp[2 * a + sg], pv);
+    m = (q == 0 || (f & kFixed) || !(f & src)) ? y : fminf(m, y);
+    const float c = __fadd_rn(__fadd_rn(m, pv), v1);
+    o[q * ostride] = first ? c : fminf(o[q * ostride], c);
+  }
+  for (int q = W - 1; q >= 2; --q) {
+    const int a = base + q * stride;
+    const uint8_t f = fl[a];
+    const float pv = __fmul_rn((float)q, v1);
+    const float y = __fadd_rn(comp[2 * a + sg], pv);
+    m = (q == W - 1 || (f & kFixed) || !(f & src)) ? y : fminf(m, y);
+    float* c = o + (q - 2) * ostride;
+    *c = fminf(*c, __fadd_rn(__fsub_rn(m, pv), v1));
+  }
+}
+
+// scan_plane for the kGlobalV build (line_scan_gm on the scratch)
+__device__ void scan_plane_gm(const Row& r, int j, int lane, int V,
+                              float v1) {
+  const int W = V + 2, W2 = W * W, SP = V + 1;
+  const float* comp = reinterpret_cast<const float*>(r.lh);
+  for (int axis = 0; axis < 2; ++axis) {
+    __syncwarp();  // the plane's flags, then its k candidates, are complete
+    for (int t = lane; t < 2 * V; t += 32) {
+      const int sg = t / V, l = t % V + 1;
+      float* out = sg ? r.scan_hi : r.scan_lo;
+      if (axis == 0)
+        line_scan_gm(comp, r.fl, j * W2 + l * W, 1, sg, V, v1,
+                     out + ((j - 1) * V + l - 1) * SP, 1, true);
+      else
+        line_scan_gm(comp, r.fl, j * W2 + l, W, sg, V, v1,
+                     out + (j - 1) * V * SP + l - 1, SP, false);
+    }
+  }
+}
+
 // The k and i lines of interior plane j by one warp, lane = sign * V +
 // line (a loop over them past 32): the k candidates are stored, the i
 // candidates taken by min into them.
@@ -326,28 +408,32 @@ __device__ inline void plane_part(const Row& r, int idx, int W, Part& lo,
   hi.d = fminf(fminf(n[5], n[6]), fminf(n[7], n[8]));
 }
 
-// One sweep of one row, V = VC (or p.V when VC is 0). `side` (K2) gives the
-// update side of each voxel; when it is null (K3) the side derives from the
-// flags and `upd`. With `fresh_out` (K2) the whole row is first passed to
-// `out` (halo and idle voxels pass through); without it (K3, in place:
-// out == h) only the voxels that update are written. Returns (to thread
-// 0's caller through *changed) whether any voxel moved by more than
-// eps_conv.
+// One sweep of one row, V = VC (or p.V when VC is 0 or kGlobalV). `side`
+// (K2) gives the update side of each voxel; when it is null (K3) the side
+// derives from the flags and `upd`. With `fresh_out` (K2) the whole row is
+// first passed to `out` (halo and idle voxels pass through); without it
+// (K3, in place: out == h) only the voxels that update are written.
+// Returns (to thread 0's caller through *changed) whether any voxel moved
+// by more than eps_conv. The kGlobalV build keeps the row in `scratch`, the
+// others in shared memory.
 template <int VC>
 __device__ void sweep_row(const float* h, const float* enc,
                           const int8_t* side, bool upd, float* out,
                           bool fresh_out, const Params& p, bool with_scans,
-                          float eps_conv, int* changed) {
+                          float eps_conv, int* changed,
+                          unsigned char* scratch) {
   const int V = VC > 0 ? VC : p.V;
   const int W = V + 2, W2 = W * W, W3 = W2 * W, VV = V * V;
   const int SP = V + 1;  // scan-candidate line pitch
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const Row r = carve(V);
+  const Row r = row_arrays<VC>(V, scratch);
   float* pass = fresh_out ? out : nullptr;
 
   uint32_t pos = 0, neg = 0;  // the first column's side, while loads fly
-  if (side && tid < VV)
-    side_bits(side, (tid / V + 1) * W + tid % V + 1, W2, V, pos, neg);
+  if constexpr (VC != kGlobalV) {
+    if (side && tid < VV)
+      side_bits(side, (tid / V + 1) * W + tid % V + 1, W2, V, pos, neg);
+  }
 
   // this warp's planes: an even share of the interior ones, the first warp
   // also plane 0 and the last plane W - 1
@@ -358,8 +444,12 @@ __device__ void sweep_row(const float* h, const float* enc,
       (((uintptr_t)h | (uintptr_t)enc | (uintptr_t)pass) & 15) == 0;
   prepare_range(r, h, enc, pass, j0 * W2, j1 * W2, lane, 32, vec, p.gamma);
   if (with_scans) {
-    for (int j = j0 > 1 ? j0 : 1; j < j1 && j <= V; ++j)
-      scan_plane<VC>(r, j, lane, V, p.v1);
+    for (int j = j0 > 1 ? j0 : 1; j < j1 && j <= V; ++j) {
+      if constexpr (VC == kGlobalV)
+        scan_plane_gm(r, j, lane, V, p.v1);
+      else
+        scan_plane<VC>(r, j, lane, V, p.v1);
+    }
   }
   __syncthreads();  // every plane staged and scanned
 
@@ -367,7 +457,9 @@ __device__ void sweep_row(const float* h, const float* enc,
   for (int col = tid; col < VV; col += kThreads) {
     const int i = col / V + 1, k = col % V + 1, cb = i * W + k;
     const int sb = (i - 1) * SP + k - 1;  // scan index of (j = 1, i, k)
-    if (side && col != tid) side_bits(side, cb, W2, V, pos, neg);
+    if constexpr (VC != kGlobalV) {
+      if (side && col != tid) side_bits(side, cb, W2, V, pos, neg);
+    }
     // j line: this column's own, so no barrier. Its backward candidates
     // are taken by min into the scan arrays first (in registers they would
     // spill in K3), its forward ones (ml, mh) during the walk.
@@ -409,7 +501,10 @@ __device__ void sweep_row(const float* h, const float* enc,
         jh = __fadd_rn(__fadd_rn(mh, pv), p.v1);
       }
       int s;
-      if (side) {
+      if (side && VC == kGlobalV) {
+        const int8_t sv = side[idx];
+        s = sv > 0 ? 1 : (sv < 0 ? -1 : 0);
+      } else if (side) {
         s = (pos >> j & 1) ? 1 : ((neg >> j & 1) ? -1 : 0);
       } else {
         const uint8_t f = r.fl[idx];
@@ -465,7 +560,26 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     return;
   }
   sweep_row<VC>(esdf + off, enc + off, side + off, false, out + off, true, p,
-                with_scans != 0, 0.0f, nullptr);
+                with_scans != 0, 0.0f, nullptr, nullptr);
+}
+
+// K2 for V > kMaxV: CTAs take rows by grid stride, each CTA working in its
+// own slice of `scratch` (scratch_bytes(V) each).
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    k2_kernel_gm(const float* esdf, const float* enc, const int8_t* side,
+                 const int32_t* slab_act, float* out, Params p,
+                 int with_scans, int n_rows, unsigned char* scratch) {
+  const int W = p.V + 2, W3 = W * W * W;
+  unsigned char* mine = scratch + (size_t)blockIdx.x * scratch_bytes(p.V);
+  for (int g = blockIdx.x; g < n_rows; g += gridDim.x) {
+    const size_t off = (size_t)g * W3;
+    if (slab_act && slab_act[g / 8] == 0) {
+      copy_row(out + off, esdf + off, W3);
+      continue;
+    }
+    sweep_row<kGlobalV>(esdf + off, enc + off, side + off, false, out + off,
+                        true, p, with_scans != 0, 0.0f, nullptr, mine);
+  }
 }
 
 // ---- K3: the sweep loop in one cooperative launch --------------------------
@@ -546,7 +660,8 @@ template <int VC>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) k3_loop_kernel(
     const float* esdf_in, float* fld, const float* enc, const int32_t* nsl,
     const int32_t* upd, int32_t* ws, int32_t* stats, int n_rows, Params p,
-    float eps_conv, int max_sweeps, int scan_sweeps, int scan_period) {
+    float eps_conv, int max_sweeps, int scan_sweeps, int scan_period,
+    unsigned char* scratch) {
   cg::grid_group grid = cg::this_grid();
   const int n_slab = n_rows / 8;
   int32_t* acts = ws;
@@ -602,7 +717,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) k3_loop_kernel(
       if (!upd[g]) continue;  // side is zero on the whole row: a pass-through
       const size_t off = (size_t)g * W3;
       sweep_row<VC>(fld + off, enc + off, nullptr, true, fld + off, false,
-                    p, scans, eps_conv, &row_changed);
+                    p, scans, eps_conv, &row_changed,
+                    VC == kGlobalV
+                        ? scratch + (size_t)blockIdx.x * scratch_bytes(V)
+                        : nullptr);
       if (threadIdx.x == 0 && row_changed) {
         chg[cur * n_slab + slab] = 1;
         changed[cur] = 1;
@@ -638,16 +756,28 @@ cudaError_t set_smem(const void* fn, size_t bytes) {
 
 // One sweep (K2) on `stream`; a null slab_act runs every slab. The
 // shared-memory attribute is set once per process and V (the kernel, with
-// constant or runtime shapes, follows V).
+// constant or runtime shapes, follows V). V > kMaxV runs k2_kernel_gm on
+// scratch_ctas CTAs (at most n_rows), `scratch` holding scratch_bytes(V)
+// for each.
 extern "C" int esdf_sweep_launch(const void* esdf, const void* enc,
                                  const void* side, const void* slab_act,
                                  void* out, int n_rows, int V, float v1,
                                  float v2, float v3, float gamma, float eps,
-                                 float max_ray, int with_scans,
-                                 void* stream) {
+                                 float max_ray, int with_scans, void* scratch,
+                                 int scratch_ctas, void* stream) {
   static int cached_V = -1;
-  if (V < 1 || V > kMaxV) return (int)cudaErrorInvalidValue;
+  if (V < 1) return (int)cudaErrorInvalidValue;
   const Params p{V, v1, v2, v3, gamma, eps, max_ray};
+  if (V > kMaxV) {
+    if (!scratch || scratch_ctas < 1) return (int)cudaErrorInvalidValue;
+    const int grid = n_rows < scratch_ctas ? n_rows : scratch_ctas;
+    if (grid < 1) return (int)cudaErrorInvalidValue;
+    k2_kernel_gm<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)esdf, (const float*)enc, (const int8_t*)side,
+        (const int32_t*)slab_act, (float*)out, p, with_scans, n_rows,
+        (unsigned char*)scratch);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = smem_bytes(V);
   const auto kernel = V == kFastV    ? k2_kernel<kFastV>
                       : V == kSmallV ? k2_kernel<kSmallV>
@@ -665,7 +795,9 @@ extern "C" int esdf_sweep_launch(const void* esdf, const void* enc,
 
 // The whole loop in one cooperative launch on `stream`: grid = the rows or,
 // if fewer, the CTAs that fit on the card at once. The attribute and the
-// occupancy are looked up once per process and V.
+// occupancy are looked up once per process and V. V > kMaxV runs
+// k3_loop_kernel<kGlobalV> on at most scratch_ctas CTAs, `scratch` holding
+// scratch_bytes(V) for each.
 extern "C" int esdf_loop_launch(const void* esdf_in, void* fld,
                                 const void* enc, const void* nsl27,
                                 const void* upd, void* ws, void* stats,
@@ -673,15 +805,19 @@ extern "C" int esdf_loop_launch(const void* esdf_in, void* fld,
                                 float v3, float gamma, float eps,
                                 float max_ray, float eps_conv, int max_sweeps,
                                 int scan_sweeps, int scan_period,
+                                void* scratch, int scratch_ctas,
                                 void* stream) {
   static int cached_V = -1, cached_ctas = 0;
-  if (V < 1 || V > kMaxV) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(V);
-  const auto kernel = V == kFastV    ? k3_loop_kernel<kFastV>
-                      : V == kSmallV ? k3_loop_kernel<kSmallV>
-                                     : k3_loop_kernel<0>;
+  if (V < 1) return (int)cudaErrorInvalidValue;
+  const bool gm = V > kMaxV;
+  if (gm && (!scratch || scratch_ctas < 1)) return (int)cudaErrorInvalidValue;
+  const size_t smem = gm ? 0 : smem_bytes(V);
+  const auto kernel = gm              ? k3_loop_kernel<kGlobalV>
+                      : V == kFastV   ? k3_loop_kernel<kFastV>
+                      : V == kSmallV  ? k3_loop_kernel<kSmallV>
+                                      : k3_loop_kernel<0>;
   if (cached_V != V) {
-    cudaError_t e = set_smem((const void*)kernel, smem);
+    cudaError_t e = gm ? cudaSuccess : set_smem((const void*)kernel, smem);
     if (e != cudaSuccess) return (int)e;
     int dev = 0, sms = 0, per_sm = 0;
     if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
@@ -696,6 +832,7 @@ extern "C" int esdf_loop_launch(const void* esdf_in, void* fld,
   }
   Params p{V, v1, v2, v3, gamma, eps, max_ray};
   int grid = n_rows < cached_ctas ? n_rows : cached_ctas;
+  if (gm && scratch_ctas < grid) grid = scratch_ctas;
   if (grid < 1) return (int)cudaErrorInvalidValue;
   const float* a0 = (const float*)esdf_in;
   float* a1 = (float*)fld;
@@ -704,8 +841,9 @@ extern "C" int esdf_loop_launch(const void* esdf_in, void* fld,
   const int32_t* a4 = (const int32_t*)upd;
   int32_t* a5 = (int32_t*)ws;
   int32_t* a6 = (int32_t*)stats;
+  unsigned char* a7 = (unsigned char*)scratch;
   void* args[] = {&a0, &a1, &a2, &a3, &a4, &a5, &a6, &n_rows, &p,
-                  &eps_conv, &max_sweeps, &scan_sweeps, &scan_period};
+                  &eps_conv, &max_sweeps, &scan_sweeps, &scan_period, &a7};
   return (int)cudaLaunchCooperativeKernel((const void*)kernel,
                                           dim3(grid), dim3(kThreads), args,
                                           smem, (cudaStream_t)stream);

@@ -1,8 +1,8 @@
 """BaseMap: shared pose state, camera intrinsics and submap registry.
 
-Host-side numpy, as in ``taichislam_tpu.models.base_map``: per-submap base
-rotations start at identity (the reference starts them at zeros), and poses
-are stored in the active submap's frame.
+Host-side numpy, as in the JAX package's ``models/base_map.py``: per-submap
+base rotations start at identity (the reference starts them at zeros), and
+poses are stored in the active submap's frame.
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from taichislam_tpu_torch.core import geometry
-from taichislam_tpu_torch.core.colormap import jet_lut_np
+from taichislam_tpu_torch.core.colormap import jet_lut_np, jet_rgba_np
 from taichislam_tpu_torch.core.device import resolve_device  # noqa: F401
 
 
@@ -97,3 +97,22 @@ class BaseMap:
 
     def finalization_current_submap(self):
         pass
+
+    # -- display helper --------------------------------------------------
+    def render_occupy_map_to_particles(self, pars, pos_, colors,
+                                       num_particles_, voxel_scale):
+        """Hand the first ``num_particles_`` exported positions to a particle
+        renderer ``pars`` (set_particles, set_particle_radii,
+        set_particle_colors); untextured maps color them by height with
+        jet."""
+        if num_particles_ == 0:
+            return
+        pos = pos_[0:num_particles_, :]
+        if not self.enable_texture:
+            max_z = np.max(pos[:, 2])
+            min_z = np.min(pos[:, 2])
+            rng = max(max_z - min_z, 1e-9)
+            colors = jet_rgba_np((pos[:, 2] - min_z) / rng)
+        pars.set_particles(pos)
+        pars.set_particle_radii(np.ones(num_particles_) * voxel_scale / 2)
+        pars.set_particle_colors(colors)

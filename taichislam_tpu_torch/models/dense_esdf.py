@@ -1,6 +1,6 @@
 """DenseESDF: TSDF map with a per-frame incremental ESDF.
 
-Counterpart of ``taichislam_tpu.models.dense_esdf`` with interval-1
+Counterpart of the JAX package's ``models/dense_esdf.py`` with interval-1
 verdicts (``esdf_check_interval=1``, the node's default). After every
 recast the frame's touched blocks are gated by ``esdf_seed_dirty`` and the
 ESDF is updated in one of three modes, chosen as the JAX model chooses:
@@ -16,8 +16,11 @@ ESDF is updated in one of three modes, chosen as the JAX model chooses:
   window and the observed box have outgrown it.
 
 A working-set overflow grows the mode's capacity, re-queues the dirty set
-and redoes the update. The deferred verdicts of ``esdf_check_interval > 1``
-and ``recast_depth_sequence`` are not ported (ROADMAP.md) and raise
+and redoes the update. ``esdf_check_interval`` is stored but every frame
+takes its verdict at once, the JAX package's exact interval-1 semantics:
+the deferred verdicts of a larger interval only save relay round trips,
+which the card does not make (ROADMAP.md, divergences).
+``recast_depth_sequence`` is not ported (ROADMAP.md) and raises
 NotImplementedError.
 """
 
@@ -38,13 +41,10 @@ class DenseESDF(DenseTSDF):
                  esdf_raise_slack_voxels=None, esdf_seed_eps_voxels=None,
                  esdf_dense_max_voxels=2 * 1024 * 1024,
                  esdf_check_interval=1, **kwargs):
-        if int(esdf_check_interval) > 1:
-            raise NotImplementedError(
-                "deferred ESDF verdicts (esdf_check_interval > 1) are not "
-                "ported (ROADMAP.md Queue A item 4)")
         super().__init__(*args, **kwargs)
         self.esdf_dense_max_voxels = esdf_dense_max_voxels
-        self.esdf_check_interval = 1
+        # kept for the node's parameter plumbing; verdicts run every frame
+        self.esdf_check_interval = max(1, int(esdf_check_interval))
         if esdf_raise_slack_voxels is not None:
             self.cfg = dataclasses.replace(
                 self.cfg, esdf_raise_slack_voxels=esdf_raise_slack_voxels)
@@ -91,10 +91,6 @@ class DenseESDF(DenseTSDF):
         super().recast_pcl_to_map(R, T, xyz_array, rgb_array)
         if self.enable_esdf:
             self.update_esdf()
-
-    def recast_depth_sequence(self, Rs, Ts, depthmaps, textures=None):
-        raise NotImplementedError(
-            "recast_depth_sequence is not ported (ROADMAP.md Queue A item 11)")
 
     # -- mode and capacity info -----------------------------------------------
     def _window_info_dev(self):

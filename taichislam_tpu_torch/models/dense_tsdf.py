@@ -1,6 +1,6 @@
 """DenseTSDF: voxblox-style TSDF map with the reference's public API.
 
-Counterpart of ``taichislam_tpu.models.dense_tsdf`` for a single map:
+Counterpart of the JAX package's ``models/dense_tsdf.py`` for a single map:
 constructor, adaptive ray-bin bucket, depth and point-cloud ingest
 (textured or not), the mesh-dirty protocol of the incremental mesher,
 surface / slice exports, ``count_active``, the npy submap dict
@@ -260,6 +260,21 @@ class DenseTSDF(BaseMap):
     def get_voxels_occupy(self):
         self.cvt_TSDF_surface_to_voxels()
         return self.export_TSDF_xyz, self.export_color
+
+    def recast_depth_sequence(self, Rs, Ts, depthmaps, textures=None):
+        raise NotImplementedError(
+            "recast_depth_sequence is not ported (ROADMAP.md Queue A, "
+            "\"Sequences and deferred verdicts\"); call recast_depth_to_map "
+            "per frame")
+
+    # -- occupancy predicate (raycast, topo graph) ---------------------------
+    def is_occupy_fn(self):
+        """Predicate xyz (..., 3) -> bool over the active submap: TSDF below
+        ``tsdf_surface_thres`` (unallocated voxels read 0, so they count as
+        occupied)."""
+        from taichislam_tpu_torch.ops.raycast import make_tsdf_occupancy_fn
+        return make_tsdf_occupancy_fn(self.cfg, self.state,
+                                      self.active_submap_id)
 
     # -- serialization --------------------------------------------------------
     def count_active(self):

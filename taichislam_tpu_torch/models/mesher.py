@@ -1,6 +1,6 @@
 """MarchingCubeMesher: host-facing mesher with the reference API.
 
-Counterpart of ``taichislam_tpu.models.mesher``:
+Counterpart of the JAX package's ``models/mesher.py``:
 ``MarchingCubeMesher(mapping, max_triangles, tsdf_surface_thres)``,
 ``generate_mesh(step)``, ``vertice_num()`` and the flat host arrays
 ``mesh_vertices`` / ``mesh_colors`` / ``mesh_normals``.

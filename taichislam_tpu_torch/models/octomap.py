@@ -1,6 +1,6 @@
 """Octomap: hit-count occupancy map with K³-tree LOD exports.
 
-Counterpart of ``taichislam_tpu.models.octomap``. Storage is the block
+Counterpart of the JAX package's ``models/octomap.py``. Storage is the block
 voxel grid, on ``device``; the K**R tree levels survive as the LOD
 parameter of ``cvt_occupy_to_voxels(level)``.
 """
@@ -186,9 +186,11 @@ class Octomap(BaseMap):
                 self.active_submap_id)
 
     def is_occupy_fn(self):
-        raise NotImplementedError(
-            "Octomap.is_occupy_fn needs ops/raycast.py, not ported yet "
-            "(ROADMAP Queue A item 10)")
+        """Predicate xyz (..., 3) -> bool over the active submap: hit count
+        above ``min_occupy_thres``."""
+        from taichislam_tpu_torch.ops.raycast import make_octomap_occupancy_fn
+        return make_octomap_occupancy_fn(self.cfg, self.state,
+                                         self.active_submap_id)
 
     def saveMap(self, path):
         pass

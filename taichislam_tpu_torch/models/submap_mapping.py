@@ -1,6 +1,6 @@
 """SubmapMapping: voxgraph-style submap collection and global map.
 
-Counterpart of ``taichislam_tpu.models.submap_mapping``, over the PyTorch
+Counterpart of the JAX package's ``models/submap_mapping.py``, over the PyTorch
 ``DenseTSDF`` and ``Octomap``: keyframe-driven submap creation, PGO pose
 chaining (``convert_by_pgo``), local -> global fusion (full refuse, or
 incremental splats of finished submaps), and the zlib-compressed submap and
@@ -470,8 +470,9 @@ class SubmapMapping:
 
     def recast_depth_sequence(self, frames):
         raise NotImplementedError(
-            "recast_depth_sequence is not ported yet (ROADMAP Queue A item "
-            "11); call recast_depth_to_map_by_frame per frame")
+            "recast_depth_sequence is not ported (ROADMAP.md Queue A, "
+            "\"Sequences and deferred verdicts\"); call "
+            "recast_depth_to_map_by_frame per frame")
 
     def recast_pcl_to_map_by_frame(self, frame_id, is_keyframe, pose, ext,
                                    pcl, rgb_array):

@@ -1,6 +1,6 @@
 """Incremental ESDF by masked Jacobi sweeps (PyTorch).
 
-Counterpart of ``taichislam_tpu.ops.esdf``:
+Counterpart of the JAX package's ``ops/esdf.py``:
 
 - ``esdf_seed_dirty``: updated-voxel gating of the frame's touched blocks;
 - ``esdf_update``, block mode: a compacted working set (the dirty blocks

@@ -1,7 +1,7 @@
 """Export and serialization ops: surface voxels, slices, sparse gather and
 scatter (PyTorch).
 
-Counterpart of ``taichislam_tpu.ops.exports``. Every export is two-level:
+Counterpart of the JAX package's ``ops/exports.py``. Every export is two-level:
 the blocks holding a candidate voxel are compacted first (a prefix sum
 over the block list), then the voxels of those ``block_cap × V³`` lanes
 are compacted in linear-index order, so the output arrays equal the JAX

@@ -1,6 +1,6 @@
 """Voxgraph-style submap -> global map TSDF fusion (PyTorch).
 
-Counterpart of ``taichislam_tpu.ops.fusion``. Every observed submap voxel
+Counterpart of the JAX package's ``ops/fusion.py``. Every observed submap voxel
 is moved through its submap's base pose and splatted into the surrounding
 global voxels with trilinear weights. Like the reference, the (0,0,0)
 corner is skipped, so 7 corners carry weight. Sources are compacted at

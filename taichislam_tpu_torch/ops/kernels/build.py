@@ -34,8 +34,10 @@ PI64 = ctypes.POINTER(ctypes.c_int64)
 SIGNATURES = {
     "seg_accum_launch": [P, P, PP, PI64, I64, I32, I32, I64, I64, I32, I32,
                          I64, I32, I32, P, P, P, P, P, I64, P],
-    "esdf_sweep_launch": [P] * 5 + [I32] * 2 + [F32] * 6 + [I32, P],
-    "esdf_loop_launch": [P] * 7 + [I32] * 2 + [F32] * 7 + [I32] * 3 + [P],
+    "esdf_sweep_launch": [P] * 5 + [I32] * 2 + [F32] * 6 + [I32, P, I32,
+                                                            P],
+    "esdf_loop_launch": [P] * 7 + [I32] * 2 + [F32] * 7 + [I32] * 3 + [
+        P, I32, P],
 }
 
 

@@ -1,6 +1,6 @@
 """K2 / K3: ESDF relaxation sweeps (CUDA kernels + plain twins).
 
-Counterparts of ``taichislam_tpu.ops.pallas.esdf_sweep``:
+Counterparts of the JAX package's ``ops/pallas/esdf_sweep.py``:
 
 - ``esdf_sweep`` (K2, ``esdf_sweep_pallas``): one Jacobi sweep over the
   halo-assembled sweep layout ``(N, W, W*W)`` = ``[j | i*W + k]``,
@@ -14,7 +14,9 @@ Both kernels are in ``csrc/esdf_sweep.cu``. ``esdf_sweep_ref`` and
 ``esdf_sweep_loop_ref`` are plain PyTorch versions with the same
 signatures; the wrappers take them only for CPU tensors. The update side
 mask must be zero on halo positions (interior-only), as in the JAX
-package.
+package. Up to ``MAX_V`` a row lives in the CTA's shared memory; a larger V
+runs the kernels' device-memory build, whose row scratch (one
+``row_scratch_bytes(V)`` slice per CTA) the wrappers allocate.
 """
 
 from __future__ import annotations
@@ -31,10 +33,14 @@ BIG = 1e9
 # otherwise (far outside any TSDF value)
 ENC_BIG = 1e6
 R = 8  # rows per activity slab
-# the largest V the kernels take (kMaxV in csrc/esdf_sweep.cu): a row's
-# shared memory (row_smem_bytes) must fit in what a CTA may take on the H100
+# the largest V whose row the kernels keep in shared memory (kMaxV in
+# csrc/esdf_sweep.cu): a row's shared memory (row_smem_bytes) must fit in
+# what a CTA may take on the H100; a larger V keeps it in device memory
 MAX_V = 20
 MAX_SMEM = 227 * 1024
+# CTAs per SM the kernels' registers are budgeted for (kMinBlocks): the
+# device-memory build runs that many per SM at most
+CTAS_PER_SM = 2
 
 
 def _f32(x: float) -> float:
@@ -168,11 +174,33 @@ def row_smem_bytes(V: int) -> int:
             + W3)
 
 
+def row_scratch_bytes(V: int) -> int:
+    """Device-memory scratch of one CTA in the V > MAX_V build
+    (``scratch_bytes`` in csrc/esdf_sweep.cu): the row's shared-memory
+    layout rounded up to 16 bytes."""
+    return (row_smem_bytes(V) + 15) // 16 * 16
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _scratch(N, V, dev):
+    """(scratch, CTAs) of a launch: none up to MAX_V; past it a
+    ``row_scratch_bytes(V)`` slice for each CTA, at most CTAS_PER_SM per SM
+    and one per row."""
+    if V <= MAX_V:
+        return None, 0
+    ctas = min(N, CTAS_PER_SM * _sm_count(dev.index if dev.index is not None
+                                          else torch.cuda.current_device()))
+    return torch.empty((ctas * row_scratch_bytes(V),), dtype=torch.uint8,
+                       device=dev), ctas
+
+
 def _check_shape(N, V):
-    if not 1 <= V <= MAX_V:
-        raise ValueError(f"V = {V}: the kernels take V from 1 to {MAX_V} "
-                         f"(a row needs {row_smem_bytes(V)} B of shared "
-                         f"memory, a CTA may take {MAX_SMEM})")
+    if V < 1:
+        raise ValueError(f"V = {V}: the kernels take V >= 1")
     if N % R:
         raise ValueError(f"rows must be a multiple of {R}, got {N}")
 
@@ -230,10 +258,12 @@ def esdf_sweep(esdf_h, enc_h, side_h, slab_act=None, *, V: int, v1: float,
             slab_act = slab_act.contiguous()
         act = slab_act.data_ptr()
     out = torch.empty_like(esdf_h)
+    scratch, ctas = _scratch(N, V, dev)
     v1f, v2f, v3f, gf, ef, mf = _consts(v1, gamma, eps, max_ray)
     err = build.library().esdf_sweep_launch(
         esdf_h.data_ptr(), enc_h.data_ptr(), side_h.data_ptr(), act,
         out.data_ptr(), N, V, v1f, v2f, v3f, gf, ef, mf, int(with_scans),
+        0 if scratch is None else scratch.data_ptr(), ctas,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "esdf_sweep_launch")
     esdf_sweep.launches += 1
@@ -367,12 +397,14 @@ def esdf_sweep_loop(esdf_h, enc_hh, nsl27, upd_rows, *, V: int, v1: float,
     fld = torch.empty_like(esdf_h)
     ws = torch.empty((5 * (N // R) + 2,), dtype=i32, device=dev)
     stats = torch.empty((4,), dtype=i32, device=dev)
+    scratch, ctas = _scratch(N, V, dev)
     v1f, v2f, v3f, gf, ef, mf = _consts(v1, gamma, eps, max_ray)
     err = lib.esdf_loop_launch(
         esdf_h.data_ptr(), fld.data_ptr(), enc_hh.data_ptr(),
         nsl27.data_ptr(), upd_rows.data_ptr(), ws.data_ptr(),
         stats.data_ptr(), N, V, v1f, v2f, v3f, gf, ef, mf, _f32(eps_conv),
         max_sweeps, scan_sweeps, scan_period,
+        0 if scratch is None else scratch.data_ptr(), ctas,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "esdf_loop_launch")
     esdf_sweep_loop.launches += 1

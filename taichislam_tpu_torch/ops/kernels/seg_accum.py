@@ -1,6 +1,7 @@
 """K1: sorted segmented block reduction (CUDA kernel + plain twin).
 
-Counterpart of ``taichislam_tpu.ops.pallas.seg_accum.segmented_block_reduce``.
+Counterpart of ``segmented_block_reduce`` in the JAX package's
+``ops/pallas/seg_accum.py``.
 Lanes are sorted by the packed key ``bkey * V3 + intra`` (stable),
 optionally cut to a lane cap, and every distinct block's lanes are summed
 into an ``(n_vals, V3)`` f32 tile. The kernel is ``csrc/seg_accum.cu``: one

@@ -1,9 +1,9 @@
 """Isosurface extraction over the block TSDF (marching tetrahedra), PyTorch.
 
-Counterpart of ``taichislam_tpu.ops.marching_cubes``. The triangulation is
-generated at import from a 6-tetrahedra decomposition of the cube around
-its V0-V6 diagonal (at most 2 triangles per tet, winding oriented toward
-positive SDF). Extraction is three-phase:
+Counterpart of the JAX package's ``ops/marching_cubes.py``. The triangulation
+is generated at import from a 6-tetrahedra decomposition of the cube around its
+V0-V6 diagonal (at most 2 triangles per tet, winding oriented toward positive
+SDF). Extraction is three-phase:
 
 0. compact the blocks holding a surface cell (``observed`` and ``TSDF <
    surface_thres``), optionally restricted to a per-slot ``block_mask``;

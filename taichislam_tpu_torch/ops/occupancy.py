@@ -1,6 +1,6 @@
 """OctoMap-style hit-count occupancy on the block grid (PyTorch).
 
-Counterpart of ``taichislam_tpu.ops.occupancy``. Every endpoint adds 1 to
+Counterpart of the JAX package's ``ops/occupancy.py``. Every endpoint adds 1 to
 its voxel's count (the reference clears no free space). A voxel is occupied
 when its count exceeds ``min_occupy_thres``. The export at LOD ``level``
 keeps the voxels that lie on the stride-``K**level`` lattice. Submap

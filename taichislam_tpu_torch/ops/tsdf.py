@@ -1,6 +1,6 @@
 """Voxblox-style TSDF integration, untextured and textured, on PyTorch tensors.
 
-Counterpart of ``taichislam_tpu.ops.tsdf``: bin the frame's points by
+Counterpart of the JAX package's ``ops/tsdf.py``: bin the frame's points by
 sensor-local voxel, march a dense (steps, bins) lattice from the sensor
 through each bin's mean point, sum Σw and Σw·d (and, textured, Σw·c per
 color component) per voxel with the sorted segmented reduction (K1,
@@ -93,6 +93,14 @@ def depth_to_points_c(cfg: TSDFConfig, depth_mm: torch.Tensor,
     return (px, py, dep), dep, color, valid
 
 
+def depth_to_points(cfg: TSDFConfig, depth_mm, texture, K_dep, K_color):
+    """Stacked-points form of :func:`depth_to_points_c`: (pts_cam (P, 3),
+    z (P,), color (P, 3) or None, valid (P,))."""
+    (px, py, pz), dep, color, valid = depth_to_points_c(
+        cfg, depth_mm, texture, K_dep, K_color)
+    return torch.stack([px, py, pz], dim=-1), dep, color, valid
+
+
 def pcl_to_points(cfg: TSDFConfig, xyz: torch.Tensor, rgb: torch.Tensor):
     """Point-cloud input: f32 points, and f32 colors when textured."""
     return xyz.float(), (rgb.float() if cfg.texture_enabled else None)
@@ -150,6 +158,12 @@ def bin_points_c(cfg: TSDFConfig, px, py, pz, z, color, valid) -> Bins:
                 sum_pos=torch.stack([acc[0, 1], acc[0, 2], acc[0, 3]], -1),
                 sum_z=acc[0, 4], sum_color=sum_color, valid=count > 0,
                 dropped=torch.clamp(total_bins - B, min=0))
+
+
+def bin_points(cfg: TSDFConfig, pts_map, z, color, valid) -> Bins:
+    """Stacked-points form of :func:`bin_points_c` (``pts_map`` (P, 3))."""
+    return bin_points_c(cfg, pts_map[:, 0], pts_map[:, 1], pts_map[:, 2],
+                        z, color, valid)
 
 
 def _march_lattice_c(cfg: TSDFConfig, bins: Bins, T: torch.Tensor):

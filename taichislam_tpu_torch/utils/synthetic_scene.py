@@ -1,6 +1,6 @@
 """Synthetic D435-like scene and orbit sequence (numpy only).
 
-The same generator as ``taichislam_tpu.utils.synthetic_scene``: an
+The same generator as the JAX package's ``utils/synthetic_scene.py``: an
 office-like room (walls + boxes) rendered to metric uint16 depth with
 D435-ish intrinsics along an orbit trajectory. It lives here too because
 this package must not import the JAX one; a test holds the two equal.

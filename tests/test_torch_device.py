@@ -142,3 +142,65 @@ def test_default_asks_for_the_card(kind, tmp_path, monkeypatch):
         with pytest.raises(_Asked):
             build()
     assert len(asked) == 3 and all(d.type == "cuda" for d in asked)
+
+
+# the entry points of the topo graph and the optimizer ------------------------
+
+def _build_entry(kind, **kw):
+    from taichislam_tpu_torch.core.colormap import jet_lut
+    from taichislam_tpu_torch.node.topo_worker import TopoGen
+    from taichislam_tpu_torch.opti import ba_demo
+    from taichislam_tpu_torch.opti.nnls import NNLS
+    if kind == "TopoGen":
+        return TopoGen(SMALL, dict(coll_det_num=16), {}, **kw).mapping
+    if kind == "NNLS":
+        return NNLS(**kw)
+    if kind == "jet_lut":
+        return jet_lut(**kw)
+    return ba_demo.make_scene(n_cams=2, n_pts=5, **kw)[3]
+
+
+ENTRIES = ["TopoGen", "NNLS", "jet_lut", "make_scene"]
+
+
+@pytest.mark.parametrize("kind", ENTRIES)
+def test_entry_points_need_the_card_or_the_cpu(kind, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _build_entry(kind)
+    assert _build_entry(kind, device="cpu").device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("kind", ENTRIES)
+def test_entry_points_default_to_the_card(kind, monkeypatch):
+    """With a card present and no device given, each entry point resolves
+    ``cuda`` (and a TopoGen's map asks for its state there)."""
+    from taichislam_tpu_torch.core import colormap
+    from taichislam_tpu_torch.opti import ba_demo, nnls
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    asked = []
+
+    def spy(device=None):
+        asked.append(base_map.resolve_device(device))
+        raise _Asked
+
+    def make_state(cfg, device=None):
+        asked.append(torch.device(device))
+        raise _Asked
+    for mod in (colormap, ba_demo, nnls):
+        monkeypatch.setattr(mod, "resolve_device", spy)
+    monkeypatch.setattr(dense_tsdf.tsdf_ops, "make_tsdf_state", make_state)
+    with pytest.raises(_Asked):
+        _build_entry(kind)
+    assert [d.type for d in asked] == ["cuda"]
+
+
+def test_topo_graph_follows_its_map():
+    """TopoGraphGen runs its map calls on the map's device."""
+    from taichislam_tpu_torch.models.topo_graph import TopoGraphGen
+    m = DenseTSDF(**SMALL, device="cpu")
+    topo = TopoGraphGen(m, coll_det_num=16)
+    assert topo.device == m.device == torch.device("cpu")
+    assert topo._dev(np.zeros(3)).device == m.device
+    assert not topo.detect_collisions(np.zeros(3))   # unobserved: all black,
+    assert topo.black_num == 16 and topo.host_syncs == 1   # at length 0

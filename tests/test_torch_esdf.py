@@ -208,11 +208,12 @@ def test_working_set_helpers_match_jax(slope):
                                   te._shell_mask(V, torch.device("cpu")))
 
 
-@pytest.mark.parametrize("V", [8, 16])
+@pytest.mark.parametrize("V", [8, 16, 24])
 @pytest.mark.parametrize("with_scans", [False, True])
 def test_sweep_twin_matches_pallas_kernel(with_scans, V):
     """K2 twin against esdf_sweep_pallas (interpret) on random fields, at a
-    small V and at the main path's V = 16."""
+    small V, at the main path's V = 16 and at V = 24, past the largest row
+    the kernels keep in shared memory (their device-memory build)."""
     N = 16
     W = V + 2
     rng = np.random.default_rng(int(with_scans) + V)
@@ -297,3 +298,33 @@ def test_max_v_is_the_largest_row_that_fits():
     assert tk.row_smem_bytes(tk.MAX_V) <= tk.MAX_SMEM < \
         tk.row_smem_bytes(tk.MAX_V + 1)
     assert tk.row_smem_bytes(16) == 110760   # 108 KB: two CTAs per SM
+
+
+def test_check_interval_runs_interval_one():
+    """DenseESDF(esdf_check_interval=4) builds, keeps the value, and runs
+    the exact interval-1 verdicts: every frame's ESDF, flags and sweeps
+    equal those of interval 1."""
+    from taichislam_tpu_torch.models.dense_esdf import DenseESDF
+    from taichislam_tpu_torch.utils.synthetic_scene import (D435_K,
+                                                            orbit_sequence)
+    K = (D435_K * np.float32(0.1)).astype(np.float32)
+    K[8] = 1.0
+    depth, Rs, Ts, K = orbit_sequence(n_frames=12, h=48, w=64, K=K)
+    kw = dict(map_scale=[6.4, 6.4], voxel_scale=0.1,
+              num_voxel_per_blk_axis=8, max_ray_length=2.0, max_blocks=512,
+              max_bins=8192, max_submap_num=8, max_esdf_sweeps=6,
+              esdf_dense_max_voxels=0, device="cpu")
+    one = DenseESDF(**kw)
+    four = DenseESDF(esdf_check_interval=4, **kw)
+    assert (one.esdf_check_interval, four.esdf_check_interval) == (1, 4)
+    for m in (one, four):
+        m.set_dep_camera_intrinsic(K)
+    for f in range(5):
+        for m in (one, four):
+            m.recast_depth_to_map(Rs[f], Ts[f], depth[f], None)
+        assert one.last_esdf_sweeps == four.last_esdf_sweeps
+        assert one._esdf_last_mode == four._esdf_last_mode
+        assert torch.equal(one.esdf, four.esdf)
+        assert torch.equal(one.esdf_fixed, four.esdf_fixed)
+        assert torch.equal(one.state.table, four.state.table)
+    assert int(one.esdf_observed.sum()) > 0

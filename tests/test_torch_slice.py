@@ -163,5 +163,13 @@ def test_bin_bucket_rule_matches_jax(n):
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError):
-        TModel(**dict(KW, esdf_check_interval=4), device=DEV)
+    """recast_depth_sequence is not ported: the models raise, naming the
+    roadmap item (esdf_check_interval > 1 is accepted and runs interval 1,
+    see test_torch_esdf.py)."""
+    from taichislam_tpu_torch.models.dense_tsdf import DenseTSDF
+    kw = {k: v for k, v in KW.items() if not k.startswith(("esdf", "max_e"))}
+    for m in (TModel(**KW, device=DEV), DenseTSDF(**kw, device=DEV)):
+        with pytest.raises(NotImplementedError,
+                           match="Sequences and deferred verdicts"):
+            m.recast_depth_sequence([np.eye(3)], [np.zeros(3)],
+                                    [np.zeros((48, 64), np.uint16)])

@@ -1675,6 +1675,430 @@ def opti_phase(dev, smi, iters=300):
             f"CPU max abs {err}")
 
 
+# ---------------------------------------------------------------------------
+# phases 15-18: the node, the entry points and the sequences
+# ---------------------------------------------------------------------------
+
+# taichislam_tpu/node/core.py:70-143 at its defaults (textured, the D435
+# cameras, 100 x 10 m at 5 cm, V = 16, max ray 5.1 m, the mesher), with the
+# ESDF type, the published map and its z = 0 slice, and no multi-drone comm
+NODE_CORE_PARAMS = {"~mapping_type": "esdf", "~output_map": True,
+                    "~esdf/publish_slice_z": 0.0, "~enable_multi": False}
+# launch/taichislam-d435.launch:7-19 (its args) and :42-60 (its rosparams)
+LAUNCH_PARAMS = {
+    "~enable_submap": True, "~mapping_type": "tsdf",
+    "~texture_enabled": False, "~enable_mesher": False,
+    "~output_map": False, "~max_ray_length": 3.1, "~min_ray_length": 0.3,
+    "~disp/max_disp_particles": 10485760, "~disp/max_mesh": 3000000,
+    "~disp_ceiling": 1.8, "~disp_floor": -0.5, "~texture_compressed": True,
+    "~voxel_scale": 0.1, "~color_same_proj": True,
+    "Kdepth/fx": 384.2377014160156, "Kdepth/fy": 384.2377014160156,
+    "Kdepth/cx": 323.4873046875, "Kdepth/cy": 235.0628204345703,
+    "Kcolor/fx": 604.7939453125, "Kcolor/fy": 604.9515991210938,
+    "Kcolor/cx": 321.3017578125, "Kcolor/cy": 242.9977264404297,
+    "~keyframe_step": 10}
+ROOT = Path(__file__).resolve().parent
+
+
+def pose_msg(R, T):
+    """A geometry_msgs/Pose-shaped message of (R, T)."""
+    from types import SimpleNamespace
+    from taichislam_tpu_torch.opti.transformations import \
+        quaternion_from_matrix
+    q = quaternion_from_matrix(R)
+    return SimpleNamespace(
+        position=SimpleNamespace(x=float(T[0]), y=float(T[1]),
+                                 z=float(T[2])),
+        orientation=SimpleNamespace(x=float(q[0]), y=float(q[1]),
+                                    z=float(q[2]), w=float(q[3])))
+
+
+def node_messages(frames, f):
+    """Frame ``f`` of the orbit as the node receives it
+    (tests/test_node_core.py:16-36): a VIOFrame-shaped frame with the pose
+    and an identity extrinsic, and the uint16 millimetre depth as bytes."""
+    from types import SimpleNamespace
+    depth, Rs, Ts = frames
+    frame = SimpleNamespace(
+        frame_id=f, is_keyframe=True,
+        odom=SimpleNamespace(pose=SimpleNamespace(pose=pose_msg(Rs[f],
+                                                                Ts[f]))),
+        extrinsics=[pose_msg(np.eye(3), np.zeros(3))])
+    d = np.ascontiguousarray(depth[f], np.uint16)
+    return frame, SimpleNamespace(width=d.shape[1], height=d.shape[0],
+                                  data=d.tobytes())
+
+
+def make_node(dev, params, keep=False, **kw):
+    """TaichiSLAMNodeCore over ``params`` on ``dev``, publishing into a
+    list: (has_rgb, points, xyz, colors) per cloud (the arrays with
+    ``keep``)."""
+    from taichislam_tpu_torch.node.core import TaichiSLAMNodeCore
+    pub = []
+
+    def publish(xyz, col, has_rgb):
+        pub.append((has_rgb, len(xyz)) + ((np.array(xyz), np.array(col))
+                                          if keep else ()))
+    core = TaichiSLAMNodeCore(
+        get_param=lambda name, default=None: params.get(name, default),
+        publish_pointcloud=publish, device=dev, **kw)
+    return core, pub
+
+
+def node_bin_floor(dev, core, frames, texs, n, opts):
+    """The largest ray-bin bucket a DenseTSDF at the node's options
+    ``opts`` follows to over ``n`` frames (the bins depend on the frames
+    only), so that the node's map can hold it and drop nothing."""
+    from taichislam_tpu_torch.models.dense_tsdf import DenseTSDF
+    depth, Rs, Ts = frames
+    m = DenseTSDF(**opts, device=dev)
+    m.set_dep_camera_intrinsic(core.Kdep)
+    m.set_color_camera_intrinsic(core.Kcolor)
+    floor = m._bin_bucket
+    for f in range(n):
+        m.recast_depth_to_map(Rs[f], Ts[f], depth[f],
+                              texs[f] if texs is not None else None)
+        floor = max(floor, m._bin_bucket)
+    return floor
+
+
+def reset_counts():
+    from taichislam_tpu_torch.ops.kernels import esdf_sweep as ks
+    from taichislam_tpu_torch.ops.kernels import seg_accum as k1
+    counters = (k1.segmented_block_reduce, ks.esdf_sweep, ks.esdf_sweep_loop)
+    for c in counters:
+        c.launches = 0
+    k1.segmented_block_reduce.site_launches.clear()
+    return counters
+
+
+def read_counts(counters, launches):
+    got = dict(zip(("K1", "K2", "K3"), (c.launches for c in counters)))
+    for k, v in got.items():
+        launches[k] += v
+    return got, dict(counters[0].site_launches)
+
+
+def node_core_phase(dev, smi, frames, texs, launches):
+    """Phase 15: TaichiSLAMNodeCore at the node's defaults with the ESDF
+    type and a headless render, 16 orbit frames as fake messages through
+    the main loop's process_taichi (recast, generate_mesh(1) into the
+    render, the published ESDF slice) and rendering() (the surface export
+    to the viewer); then 4 frames on a 10 x 10 m map without a render (the
+    surface and the slice published), a core on the card against a core on
+    the CPU. The render is the browser viewer's InteractiveRender, a
+    TaichiSLAMRender whose rendering() packs the scene for a localhost page
+    and needs no matplotlib."""
+    import torch
+    from taichislam_tpu_torch.utils.viewer_server import InteractiveRender
+    render = InteractiveRender(port=0, announce=False)
+    core, pub = make_node(dev, NODE_CORE_PARAMS, render=render)
+    m = core.mapping
+    floor = node_bin_floor(dev, core, frames, texs, N_FRAMES,
+                           core.get_sdf_opts())
+    hold_bins(m, floor)
+    counters = reset_counts()
+    torch.cuda.synchronize()
+    recs = []
+    for f in range(N_FRAMES):
+        frame, msg = node_messages(frames, f)
+        core.stage_depth(frame, msg, texs[f])
+        n_pub = len(pub)
+        t0 = time.perf_counter()
+        core.process_taichi()
+        torch.cuda.synchronize()
+        ms = 1000 * (time.perf_counter() - t0)
+        core.rendering()
+        st = m.last_stats
+        drops = {k: int(st[k]) for k in DROP_KEYS if int(st[k])}
+        recs.append(dict(ms=ms, drops=drops, mode=m._esdf_last_mode,
+                         published=[p[:2] for p in pub[n_pub:]],
+                         surface=len(render.par),
+                         tris=core.mesher.num_facelets))
+    torch.cuda.synchronize()
+    got, _ = read_counts(counters, launches)
+    scene_mib = len(render.server.store.snapshot()[1]) / 2**20
+    render.close()
+    log(f"[phase15] launches during the node's {N_FRAMES} frames: {got}")
+    require(got["K1"] > 0 and got["K3"] > 0,
+            f"node core: K1 or K3 not launched ({got})")
+    require(all(not r["drops"] for r in recs),
+            f"node core: capacity drops {[r['drops'] for r in recs]}")
+    # with a render and the mesher, output() meshes and publishes the ESDF
+    # slice; the surface goes to the viewer in the loop's rendering() tick
+    require(all(r["published"] and all(n > 0 and rgb for rgb, n in
+                                       r["published"]) for r in recs),
+            "node core: a frame published no ESDF slice")
+    require(min(r["surface"] for r in recs) > 0, "node core: empty surface")
+    require(recs[-1]["tris"] > 0, "node core: no triangles")
+    log(f"[phase15] per frame: ESDF mode {[r['mode'] for r in recs]}, "
+        f"slice points {[r['published'][0][1] for r in recs]}, surface "
+        f"points {[r['surface'] for r in recs]}, triangles "
+        f"{[r['tris'] for r in recs]}; bin bucket held at {floor}; the "
+        f"viewer's last scene {scene_mib:.1f} MiB")
+    ms = np.array([r["ms"] for r in recs])
+    block = ms[[r["mode"] == "block" for r in recs]]
+    log(f"[phase15] process_taichi wall ms per frame (closed by "
+        f"torch.cuda.synchronize) {np.round(ms, 3).tolist()}; mean "
+        f"{ms.mean():.3f}, block-mode frames "
+        f"{f'{block.mean():.3f}' if len(block) else 'none'} ({smi})")
+    del core, m, render
+
+    # card against CPU on a 10 x 10 m map, the surface and slice published
+    params = dict(NODE_CORE_PARAMS, **{"~map_size_xy": 10,
+                                       "~map_size_z": 10})
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        c, p = make_node(d, params, keep=True)
+        for f in range(CPU_FRAMES):
+            frame, msg = node_messages(frames, f)
+            c.stage_depth(frame, msg, texs[f])
+            c.process_taichi()
+        runs.append(p)
+        del c
+    g, c = runs
+    require(len(g) == len(c) == 2 * CPU_FRAMES,
+            f"node card vs CPU: {len(g)} vs {len(c)} clouds")
+    err = 0.0
+    for a, b in zip(g, c):
+        require(a[:2] == b[:2], f"node card vs CPU: counts {a[:2]} {b[:2]}")
+        require(np.array_equal(a[2], b[2]), "node card vs CPU: xyz")
+        err = max(err, float(np.abs(a[3] - b[3]).max(initial=0.0)))
+    require(err <= 4e-3, f"node card vs CPU: colors max abs {err}")
+    log(f"[phase15] card vs CPU, {CPU_FRAMES} frames on a 10 x 10 m map: "
+        f"published counts {[a[1] for a in g]} exact, xyz exact, colors "
+        f"max abs {err}")
+
+
+def launch_node_phase(dev, smi, frames, launches):
+    """Phase 16: two cores with the launch file's parameters (drones 0 and
+    1) on the port's LoopbackTransport hub; 40 orbit frames on drone 0,
+    drone 1 handles its comm after each boundary; then PGO poses on drone
+    0 and its refuse."""
+    import torch
+    from types import SimpleNamespace
+    from taichislam_tpu_torch import runtime
+    from taichislam_tpu_torch.utils.comm import (LoopbackTransport,
+                                                 SLAMComm,
+                                                 make_udpm_transport)
+    hub = LoopbackTransport.Hub()
+    a, _ = make_node(dev, dict(LAUNCH_PARAMS, **{"~drone_id": 0}),
+                     comm=SLAMComm(0, transport=LoopbackTransport(hub)))
+    b, _ = make_node(dev, dict(LAUNCH_PARAMS, **{"~drone_id": 1}),
+                     comm=SLAMComm(1, transport=LoopbackTransport(hub)))
+    sm = a.mapping
+    col = sm.submap_collection
+    floor = node_bin_floor(dev, a, frames, None, SUB_FRAMES,
+                           a.get_submap_opts())
+    hold_bins(col, floor)
+    counters = reset_counts()
+    torch.cuda.synchronize()
+    recs = []
+    for f in range(SUB_FRAMES):
+        frame, msg = node_messages(frames, f)
+        a.stage_depth(frame, msg)
+        t0 = time.perf_counter()
+        a.process_taichi()
+        torch.cuda.synchronize()
+        ms = 1000 * (time.perf_counter() - t0)
+        boundary = f > 0 and f % KEYFRAME_STEP == 0
+        if boundary:
+            b.handle_comm()
+        st = col.last_stats
+        recs.append(dict(ms=ms, boundary=boundary,
+                         drops={k: int(st[k]) for k in DROP_KEYS
+                                if int(st[k])},
+                         remote=b.mapping.submap_collection.remote_submap_num))
+    # PGO: drone 0's trajectory moves every submap's base by 5 cm
+    fids = sorted(sm.submaps)
+    want = np.asarray(sm.pgo_poses[fids[0]][1], np.float64) + 0.05
+    traj = SimpleNamespace(drone_id=0, frame_ids=fids, poses=[
+        pose_msg(sm.pgo_poses[i][0], np.asarray(sm.pgo_poses[i][1]) + 0.05)
+        for i in fids])
+    a.traj_callback(traj)
+    moved = sm.global_map.submaps_base_T_np[sm.submaps[fids[0]]].copy()
+    t0 = time.perf_counter()
+    sm.local_to_global()
+    torch.cuda.synchronize()
+    pgo_ms = 1000 * (time.perf_counter() - t0)
+    gst = sm.global_map.last_stats
+    b.handle_comm()
+    torch.cuda.synchronize()
+    got, sites = read_counts(counters, launches)
+    n_b = b.mapping.submap_collection.remote_submap_num
+    log(f"[phase16] launches during the two drones' run: {got}, K1 by site "
+        f"{sites}")
+    require(sites.get("fusion", 0) > 0, "launch node: K1 not at fusion")
+    require(all(not r["drops"] for r in recs),
+            f"launch node: drops {[r['drops'] for r in recs]}")
+    require(int(gst["fuse_dropped"]) == 0 and
+            int(gst["fuse_tiles_dropped"]) == 0, "launch node: PGO dropped")
+    require(np.allclose(moved, want, atol=1e-5),
+            f"launch node: PGO re-pose {moved} for {want}")
+    require(n_b == (SUB_FRAMES - 1) // KEYFRAME_STEP and
+            b.mapping.global_map.count_active() > 0,
+            f"launch node: drone 1 holds {n_b} submaps")
+    ms = np.array([r["ms"] for r in recs])
+    inner = ~np.array([r["boundary"] for r in recs])
+    log(f"[phase16] drone 0: process_taichi off the boundaries "
+        f"{ms[inner].mean():.3f} ms/frame, boundary frames "
+        + ", ".join(f"{f}: {r['ms']:.3f} ms" for f, r in enumerate(recs)
+                    if r["boundary"])
+        + f"; PGO re-pose of {len(fids)} submaps and refuse "
+        f"{pgo_ms:.3f} ms ({smi})")
+    log(f"[phase16] drone 1 received {n_b} submaps (after each boundary "
+        f"{[r['remote'] for r in recs if r['boundary']]}), global voxels "
+        f"{b.mapping.global_map.count_active()}; drone 0 global voxels "
+        f"{sm.global_map.count_active()}")
+    native = runtime.native_available()
+    try:
+        tr = make_udpm_transport("udpm://224.0.0.251:7667?ttl=0")
+        chosen = type(tr).__name__
+        tr.close()
+    except OSError as e:
+        chosen = f"none: the socket did not bind ({e})"
+    log(f"[phase16] make_udpm_transport would choose {chosen} (native "
+        f"transport built: {native}); this phase used LoopbackTransport")
+
+
+def entry_points_phase(smi, timeout_s=300):
+    """Phase 17: the port's entry points as a user runs them, each in its
+    own process on the card. The offline demo serves its render through the
+    browser viewer on a free localhost port: its matplotlib frame needs a
+    package this host may not have."""
+    runs = [("demo_synthetic", ["taichislam_tpu_torch.examples.demo_synthetic",
+                                "--frames", "8", "--topo", "--two-drones"],
+             "[demo] OK"),
+            ("demo", ["taichislam_tpu_torch.demo", "-m", "tsdf", "--viewer",
+                      "--viewer-port", "0"], "demo done"),
+            ("gen_topo_graph", ["taichislam_tpu_torch.examples.gen_topo_graph",
+                                "--benchmark", "--run_num", "5"],
+             "avg gen convex cost time")]
+    for name, args, want in runs:
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", *args], cwd=ROOT,
+                             capture_output=True, text=True,
+                             timeout=timeout_s)
+        wall = time.perf_counter() - t0
+        tail = res.stdout.strip().splitlines()[-3:]
+        require(res.returncode == 0 and want in res.stdout,
+                f"{name}: exit {res.returncode}, {tail}, "
+                f"{res.stderr[-2000:]}")
+        log(f"[phase17] python -m {' '.join(args)}: exit 0 in {wall:.1f} s "
+            f"wall ({smi}); last lines {tail}")
+
+
+def hold_seq_bins(m, floor):
+    """Hold the ray-bin bucket a window verdict leaves at or above
+    ``floor`` (hold_bins for the sequence path)."""
+    verdict = m._sequence_verdict
+
+    def held(stats):
+        redo = verdict(stats)
+        m._bin_bucket = max(m._bin_bucket, floor)
+        return redo
+    m._sequence_verdict = held
+    m._bin_bucket = floor
+
+
+def sequence_phase(dev, frames, texs, n=6, n_sub=9):
+    """Phase 18: recast_depth_sequence on the bench-sized map against the
+    port's own per-frame loop under the JAX semantics (the ESDF window's
+    budget is min(max_esdf_sweeps, 6)), with the same bin bucket and ESDF
+    block cap on both sides."""
+    import torch
+    from taichislam_tpu_torch.models.dense_esdf import DenseESDF
+    from taichislam_tpu_torch.models.dense_tsdf import DenseTSDF
+    from taichislam_tpu_torch.models.submap_mapping import SubmapMapping
+    depth, Rs, Ts = frames
+    tsdf_kw = {k: v for k, v in BENCH_MAP.items()
+               if not k.startswith(("esdf", "max_e"))}
+    probe = DenseTSDF(**tsdf_kw, device=dev)
+    probe.set_dep_camera_intrinsic(KDEPTH)
+    probe.set_color_camera_intrinsic(KCOLOR)
+    floor = probe._bin_bucket
+    for f in range(n_sub):
+        probe.recast_depth_to_map(Rs[f], Ts[f], depth[f], texs[f])
+        floor = max(floor, probe._bin_bucket)
+    del probe
+
+    def build(cls, **kw):
+        m = cls(**kw, device=dev)
+        m.set_dep_camera_intrinsic(KDEPTH)
+        m.set_color_camera_intrinsic(KCOLOR)
+        hold_bins(m, floor)
+        hold_seq_bins(m, floor)
+        if cls is DenseESDF:
+            m._esdf_cap_bucket = 1024
+        return m
+
+    def compare(name, a, b, esdf=False):
+        for key in ("table", "block_coords", "num_blocks"):
+            require(torch.equal(getattr(a.state, key),
+                                getattr(b.state, key)), f"{name}: {key}")
+        for key in ("TSDF_observed", "occupy"):
+            require(torch.equal(a.state.channels[key],
+                                b.state.channels[key]), f"{name}: {key}")
+        errs = {k: float((a.state.channels[k].float() -
+                          b.state.channels[k].float()).abs().max())
+                for k in ("TSDF", "W_TSDF", "color")}
+        if esdf:
+            require(torch.equal(a.esdf_observed, b.esdf_observed) and
+                    torch.equal(a.esdf_fixed, b.esdf_fixed),
+                    f"{name}: ESDF flags")
+            errs["ESDF"] = float((a.esdf - b.esdf)[a.esdf_observed].abs()
+                                 .max())
+        require(max(errs["TSDF"], errs["W_TSDF"], errs.get("ESDF", 0.0))
+                <= 1e-5 and errs["color"] <= 4e-3, f"{name}: {errs}")
+        return errs
+
+    out = []
+    seq = build(DenseTSDF, **tsdf_kw)
+    seq.recast_depth_sequence(Rs[:n], Ts[:n], depth[:n], texs[:n])
+    ref = build(DenseTSDF, **tsdf_kw)
+    for f in range(n):
+        ref.recast_depth_to_map(Rs[f], Ts[f], depth[f], texs[f])
+    require(int(seq.last_stats["max_dropped"]) == 0, "sequence dropped")
+    out.append(("DenseTSDF", compare("DenseTSDF sequence", seq, ref)))
+    del seq, ref
+    esdf_kw = dict(BENCH_MAP, esdf_dense_max_voxels=0)
+    for sweeps in (6, 32):
+        seq = build(DenseESDF, **dict(esdf_kw, max_esdf_sweeps=sweeps))
+        seq.recast_depth_sequence(Rs[:n], Ts[:n], depth[:n], texs[:n])
+        ref = build(DenseESDF, **dict(esdf_kw, max_esdf_sweeps=6))
+        for f in range(n):
+            ref.recast_depth_to_map(Rs[f], Ts[f], depth[f], texs[f])
+        out.append((f"DenseESDF {sweeps} sweeps", compare(
+            f"DenseESDF {sweeps} sweeps", seq, ref, esdf=True)))
+        del seq, ref
+
+    def build_sm():
+        sm = SubmapMapping(DenseTSDF, keyframe_step=4, device=dev,
+                           sub_opts=dict(tsdf_kw, max_disp_particles=100000),
+                           global_opts=tsdf_kw)
+        sm.set_dep_camera_intrinsic(KDEPTH)
+        sm.set_color_camera_intrinsic(KCOLOR)
+        hold_bins(sm.submap_collection, floor)
+        hold_seq_bins(sm.submap_collection, floor)
+        return sm
+    calls = [(f, True, (Rs[f], Ts[f]), EXT, depth[f], texs[f])
+             for f in range(n_sub)]
+    seq, ref = build_sm(), build_sm()
+    seq.recast_depth_sequence(calls)
+    for c in calls:
+        ref.recast_depth_to_map_by_frame(*c)
+    require(seq.submaps == ref.submaps and
+            seq.frame_count == ref.frame_count, "SubmapMapping lifecycle")
+    out.append(("SubmapMapping collection", compare(
+        "SubmapMapping collection", seq.submap_collection,
+        ref.submap_collection)))
+    out.append(("SubmapMapping global", compare(
+        "SubmapMapping global", seq.global_map, ref.global_map)))
+    log(f"[phase18] sequences on the card against the per-frame loop "
+        f"({n} frames; SubmapMapping {n_sub} frames, keyframe_step 4, "
+        f"submaps {sorted(seq.submaps)}): tables and flags exact; max abs "
+        + "; ".join(f"{k} {v}" for k, v in out))
+
 
 def main():
     import torch
@@ -1829,6 +2253,14 @@ def main():
     del node_map, node_loaded
     v24_phase(dev, (depth_n, Rs_n, Ts_n), texs, launches)
     opti_phase(dev, smi)
+
+    # ---- phases 15-18 ----------------------------------------------------
+    t0 = time.perf_counter()
+    node_core_phase(dev, smi, (depth_n, Rs_n, Ts_n), texs, launches)
+    launch_node_phase(dev, smi, sub_frames, launches)
+    entry_points_phase(smi)
+    sequence_phase(dev, (depth_n, Rs_n, Ts_n), texs)
+    log(f"[phase18] phases 15-18 took {time.perf_counter() - t0:.1f} s")
 
     src = "taichislam_tpu_torch/csrc/"
     table = [("seg_accum (K1)", "K1", src + "seg_accum.cu",

@@ -20,8 +20,12 @@ and redoes the update. ``esdf_check_interval`` is stored but every frame
 takes its verdict at once, the JAX package's exact interval-1 semantics:
 the deferred verdicts of a larger interval only save relay round trips,
 which the card does not make (ROADMAP.md, divergences).
-``recast_depth_sequence`` is not ported (ROADMAP.md) and raises
-NotImplementedError.
+
+``recast_depth_sequence`` follows the JAX sequence: in the gated
+block-incremental mode every frame of the window runs the block-mode ESDF
+step at a budget of ``min(max_esdf_sweeps, 6)``, whatever mode the
+per-frame path would take; otherwise the window is TSDF only, followed by
+one ``update_esdf()``.
 """
 
 from __future__ import annotations
@@ -91,6 +95,81 @@ class DenseESDF(DenseTSDF):
         super().recast_pcl_to_map(R, T, xyz_array, rgb_array)
         if self.enable_esdf:
             self.update_esdf()
+
+    # -- multi-frame ingest ---------------------------------------------------
+    def recast_depth_sequence(self, Rs, Ts, depthmaps, textures=None):
+        """A window of frames with the JAX sequence's ESDF semantics: in
+        the gated block-incremental mode, per frame ``esdf_seed_dirty``,
+        the pending wavefront, and ``esdf_update`` (block mode, budget
+        ``min(max_esdf_sweeps, 6)``, the block-cap bucket), with one
+        capacity verdict for the window (an ESDF overflow grows the bucket
+        and redoes the window); otherwise the TSDF window and then one
+        ``update_esdf()``."""
+        if not (self.enable_esdf and self.esdf_incremental and
+                self.cfg.esdf_seed_eps_voxels >= 0):
+            super().recast_depth_sequence(Rs, Ts, depthmaps, textures)
+            if self.enable_esdf:
+                self.update_esdf()
+            return
+        if self._esdf_pending is None:
+            self._esdf_pending = torch.zeros(
+                (self.cfg.grid.max_blocks + 1,), dtype=torch.bool,
+                device=self.device)
+        self._recast_window(Rs, Ts, depthmaps, textures,
+                            esdf_budget=min(self.max_esdf_sweeps, 6))
+        st = self.state
+        blk = st.block_active & (st.block_coords[:, 0] ==
+                                 self.active_submap_id)
+        blk[-1] = False
+        self.esdf_observed = (st.channels["TSDF_observed"] > 0) & \
+            blk[:, None]
+
+    def _window_entry(self, esdf):
+        entry = super()._window_entry(esdf)
+        if not esdf:
+            return entry
+        return {"grid": entry, "esdf": tuple(t.clone() for t in (
+            self.esdf, self.esdf_fixed, self._esdf_pending,
+            self._esdf_seen_tsdf, self._esdf_seen_obs))}
+
+    def _window_restore(self, entry):
+        if not isinstance(entry, dict):
+            return super()._window_restore(entry)
+        super()._window_restore(entry["grid"])
+        (self.esdf, self.esdf_fixed, self._esdf_pending,
+         self._esdf_seen_tsdf, self._esdf_seen_obs) = (
+            t.clone() for t in entry["esdf"])
+
+    def _window_esdf_step(self, cfg, budget, stats):
+        """One frame's ESDF in a window; returns its block-cap overflow."""
+        dirty, self._esdf_seen_tsdf, self._esdf_seen_obs = \
+            esdf_ops.esdf_seed_dirty(cfg, self.state, self._esdf_seen_tsdf,
+                                     self._esdf_seen_obs,
+                                     stats["touched_blocks"])
+        dirty = dirty | self._esdf_pending
+        (self.esdf, self.esdf_fixed, _, _, self._esdf_pending,
+         overflow) = esdf_ops.esdf_update(
+            cfg, budget, self._esdf_cap_bucket, self.state, self.esdf,
+            self.esdf_fixed, self.active_submap_id, dirty,
+            tsdf_src=self._esdf_seen_tsdf, obs_src=self._esdf_seen_obs)
+        return overflow.to(torch.int32)
+
+    def _sequence_verdict(self, stats):
+        redo = super()._sequence_verdict(stats)
+        if self._verdict_extra and self._verdict_extra[0] > 0:
+            ov = self._verdict_extra[0]
+            cap = self._esdf_cap_bucket
+            grown = cap
+            while grown < cap + ov:
+                grown *= 2
+            grown = min(grown, self.esdf_block_cap)
+            if grown > cap:
+                self._esdf_cap_bucket = grown
+                redo = True
+            else:
+                print("[DenseESDF] sequence ESDF working set over "
+                      f"esdf_block_cap by {ov}")
+        return redo
 
     # -- mode and capacity info -----------------------------------------------
     def _window_info_dev(self):

@@ -8,7 +8,9 @@ surface / slice exports, ``count_active``, the npy submap dict
 JAX package's), the compact submap gather of the voxgraph wire
 (``export_submap_async`` / ``finish_export_submap``), remote submaps in
 descending slots, submap fusion (``fuse_submaps``,
-``fuse_submaps_incremental``), ``reset`` and the ``init_sphere`` fixture.
+``fuse_submaps_incremental``), ``reset``, the ``init_sphere`` fixture and
+the multi-frame ingest ``recast_depth_sequence`` (the JAX sequence's
+semantics as a loop of per-frame integrations).
 The map state lives on ``device``: the CUDA card unless the caller passes
 another (``device="cpu"``); with no card and no device it raises.
 """
@@ -53,6 +55,15 @@ def host_export(arrays, kept, fills):
         h[:kept] = a[:kept].cpu().numpy()
         out.append(h)
     return out
+
+
+def clone_state(state):
+    """A copy of a GridState whose tensors share nothing with ``state``
+    (the per-frame ops write the state in place)."""
+    return state._replace(
+        channels={k: v.clone() for k, v in state.channels.items()},
+        **{f: getattr(state, f).clone() for f in state._fields
+           if f != "channels"})
 
 
 class DenseTSDF(BaseMap):
@@ -165,21 +176,26 @@ class DenseTSDF(BaseMap):
         self._mark_mesh_dirty(stats.get("touched_blocks"))
         self._update_bin_bucket(stats)
 
-    def recast_depth_to_map(self, R, T, depthmap, texture):
-        """Fuse one uint16-mm depth image taken at world pose (R, T), with
-        its (h, w, 3) uint8 texture when the map is textured."""
+    def _integrate_frame(self, cfg, R, T, depthmap, tex):
+        """Fuse one depth image at world pose (R, T) with ``cfg`` and the
+        texture ``tex`` as given; returns the frame's stats."""
         self.set_pose(R, T)
-        tex = texture if self.enable_texture else np.zeros((1, 1, 3),
-                                                           np.uint8)
         kc = self.K_cam_color if self.K_cam_color is not None else \
             self.K_cam_dep
         self.state, stats = tsdf_ops.integrate_depth(
-            self._recast_cfg(), self.state,
-            self._tensor(depthmap, np.int32), self._tensor(tex),
-            self._tensor(self.input_R), self._tensor(self.input_T),
-            self._tensor(self.K_cam_dep), self._tensor(kc),
-            self.active_submap_id)
-        self._after_recast(stats)
+            cfg, self.state, self._tensor(depthmap, np.int32),
+            self._tensor(tex), self._tensor(self.input_R),
+            self._tensor(self.input_T), self._tensor(self.K_cam_dep),
+            self._tensor(kc), self.active_submap_id)
+        return stats
+
+    def recast_depth_to_map(self, R, T, depthmap, texture):
+        """Fuse one uint16-mm depth image taken at world pose (R, T), with
+        its (h, w, 3) uint8 texture when the map is textured."""
+        tex = texture if self.enable_texture else np.zeros((1, 1, 3),
+                                                           np.uint8)
+        self._after_recast(self._integrate_frame(self._recast_cfg(), R, T,
+                                                 depthmap, tex))
 
     def recast_pcl_to_map(self, R, T, xyz_array, rgb_array):
         """Fuse one point cloud (sensor frame, rotated only) taken at world
@@ -261,11 +277,106 @@ class DenseTSDF(BaseMap):
         self.cvt_TSDF_surface_to_voxels()
         return self.export_TSDF_xyz, self.export_color
 
+    # -- multi-frame ingest ---------------------------------------------------
     def recast_depth_sequence(self, Rs, Ts, depthmaps, textures=None):
-        raise NotImplementedError(
-            "recast_depth_sequence is not ported (ROADMAP.md Queue A, "
-            "\"Sequences and deferred verdicts\"); call recast_depth_to_map "
-            "per frame")
+        """Fuse a window of depth frames (world poses ``Rs``, ``Ts``) with
+        the JAX package's sequence semantics, as a loop of per-frame
+        integrations; there is no single dispatch here. The window holds
+        one ray-bin bucket, its stats are its frames' maxima
+        (``max_bins_total``, ``max_dropped``, ``max_live_lanes``) and the
+        union of their touched blocks, and a capacity miss grows the
+        buckets and redoes the whole window from its entry state. The
+        active submap must not change inside the window
+        (``SubmapMapping.recast_depth_sequence`` splits at keyframes).
+        ``sequence_verdict_async = True`` is accepted and ends in the state
+        of the JAX package's async chain (which also replays a window whose
+        bucket did not cover its bins); the verdict is settled before this
+        returns, so readers of the map see no pending chain."""
+        self._recast_window(Rs, Ts, depthmaps, textures)
+
+    def _sequence_cfg(self):
+        cfg = self._recast_cfg()
+        tb = getattr(self, "_touched_bucket", 0)
+        if tb and tb != cfg.max_touched_blocks:
+            cfg = dataclasses.replace(cfg, max_touched_blocks=tb)
+        return cfg
+
+    def _window_entry(self, esdf):
+        """What a redo restores: the map state (DenseESDF adds its ESDF
+        arrays when ``esdf``)."""
+        return clone_state(self.state)
+
+    def _window_restore(self, entry):
+        self.state = clone_state(entry)
+
+    def _recast_window(self, Rs, Ts, depthmaps, textures, esdf_budget=None):
+        """The window loop. With ``esdf_budget`` every frame also runs
+        DenseESDF's gated block-mode ESDF step at that budget."""
+        i32 = torch.int32
+        entry = self._window_entry(esdf_budget is not None)
+        for attempt in range(8):
+            if attempt:
+                self._window_restore(entry)
+            cfg = self._sequence_cfg()
+            rows, touched = [], None
+            for f in range(len(depthmaps)):
+                tex = textures[f] if (self.enable_texture and
+                                      textures is not None) else \
+                    np.zeros((1, 1, 3), np.uint8)
+                st = self._integrate_frame(cfg, Rs[f], Ts[f], depthmaps[f],
+                                           tex)
+                row = [st["num_bins"].to(i32) + st["bins_dropped"].to(i32),
+                       st["alloc_overflow"].to(i32) +
+                       st["touched_dropped"].to(i32) +
+                       st["lanes_dropped"].to(i32), st["live_lanes"].to(i32)]
+                if esdf_budget is not None:
+                    row.append(self._window_esdf_step(cfg, esdf_budget, st))
+                rows.append(torch.stack(row))
+                tb = st["touched_blocks"]
+                touched = tb if touched is None else touched | tb
+            mx = torch.stack(rows).amax(0)
+            stats = {"max_bins_total": mx[0], "max_dropped": mx[1],
+                     "max_live_lanes": mx[2], "touched_blocks": touched}
+            if esdf_budget is not None:
+                stats["max_esdf_overflow"] = mx[3]
+            if not self._sequence_verdict(stats):
+                break
+        self.last_stats = stats
+        self._mark_mesh_dirty(touched)
+
+    def _sequence_verdict(self, stats):
+        """One host read for the window; grow the buckets on a capacity
+        miss. Returns True when the window must be redone. The read also
+        carries ``max_esdf_overflow`` when present, into
+        ``self._verdict_extra``."""
+        keys = ["max_bins_total", "max_dropped"] + [
+            k for k in ("max_esdf_overflow",) if k in stats]
+        pack = torch.stack([stats[k] for k in keys]).cpu().tolist()
+        bins_total, dropped = pack[:2]
+        self._verdict_extra = pack[2:]
+        redo = False
+        want = min(bin_bucket_for(bins_total), self.cfg.max_bins)
+        # the JAX package's async chain also replays a window whose bucket
+        # did not cover its bins
+        late = getattr(self, "sequence_verdict_async", False) and \
+            want > self._bin_bucket
+        if dropped > 0 or late:
+            # any capacity miss (touched tiles / lanes / alloc): grow the
+            # buckets and redo the window from its entry state
+            if want > self._bin_bucket:
+                self._bin_bucket = want
+                redo = True
+            tb = getattr(self, "_touched_bucket",
+                         self.cfg.max_touched_blocks)
+            if tb < self.cfg.max_blocks:
+                self._touched_bucket = min(tb * 2, self.cfg.max_blocks)
+                redo = True
+            if not redo:
+                print("[DenseTSDF] sequence capacity miss at max buckets: "
+                      f"dropped {dropped}")
+        else:
+            self._bin_bucket = want
+        return redo
 
     # -- occupancy predicate (raycast, topo graph) ---------------------------
     def is_occupy_fn(self):

@@ -147,6 +147,10 @@ class SubmapMapping:
         self.submap_collection = self.submap_type(**self.sub_opts,
                                                   device=self.device)
         self.global_map = self.create_globalmap(global_opts)
+        if self.async_finalize and submap_type == DenseTSDF:
+            # accepted as in the JAX package; the port settles every window
+            # verdict before recast_depth_sequence returns
+            self.submap_collection.sequence_verdict_async = True
         self.first_init = True
         self.set_exporting_global()
         self.ego_motion_poses = {}
@@ -469,10 +473,34 @@ class SubmapMapping:
         self.frame_count += 1
 
     def recast_depth_sequence(self, frames):
-        raise NotImplementedError(
-            "recast_depth_sequence is not ported (ROADMAP.md Queue A, "
-            "\"Sequences and deferred verdicts\"); call "
-            "recast_depth_to_map_by_frame per frame")
+        """Batch ingest for bag replay: ``frames`` is an iterable of the
+        per-frame call tuples ``(frame_id, is_keyframe, (R, T),
+        (R_ext, T_ext), depthmap, texture)``. Frames between keyframe
+        boundaries go through the collection's ``recast_depth_sequence``
+        window; the submap lifecycle (create / finalize / global fusion)
+        runs at the split points exactly as in the per-frame path."""
+        run = {"R": [], "T": [], "depth": [], "tex": []}
+
+        def flush():
+            if not run["R"]:
+                return
+            tex = run["tex"] if run["tex"][0] is not None else None
+            self.submap_collection.recast_depth_sequence(
+                run["R"], run["T"], run["depth"], tex)
+            run.update(R=[], T=[], depth=[], tex=[])
+
+        for frame_id, is_keyframe, pose, ext, depthmap, texture in frames:
+            R, T = self.convert_by_pgo(frame_id, *pose)
+            if self.need_create_new_submap(is_keyframe, R, T):
+                flush()
+                self.create_new_submap(frame_id, R, T)
+            R_ext, T_ext = ext
+            run["R"].append(R @ R_ext)
+            run["T"].append(T + R @ T_ext)
+            run["depth"].append(depthmap)
+            run["tex"].append(texture)
+            self.frame_count += 1
+        flush()
 
     def recast_pcl_to_map_by_frame(self, frame_id, is_keyframe, pose, ext,
                                    pcl, rgb_array):

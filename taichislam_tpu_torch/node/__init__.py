@@ -1,1 +1,1 @@
-"""The node's workers (the topology-skeleton process)."""
+"""The node: the ROS-free core, its rospy shell and the topology worker."""

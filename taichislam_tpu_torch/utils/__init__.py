@@ -1,1 +1,1 @@
-"""Host-side helpers (numpy only)."""
+"""Host-side helpers: comm, codecs, ROS interop, viewers, profiling."""

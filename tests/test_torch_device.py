@@ -204,3 +204,77 @@ def test_topo_graph_follows_its_map():
     assert topo._dev(np.zeros(3)).device == m.device
     assert not topo.detect_collisions(np.zeros(3))   # unobserved: all black,
     assert topo.black_num == 16 and topo.host_syncs == 1   # at length 0
+
+
+# the node and the user-facing entry points -----------------------------------
+
+NODE_PARAMS = {"~enable_multi": False, "~enable_mesher": False,
+               "~texture_enabled": False, "~map_size_xy": 3.2,
+               "~map_size_z": 3.2, "~voxel_scale": 0.1,
+               "~num_voxel_per_blk_axis": 8}
+NODE_ENTRIES = ["TaichiSLAMNodeCore", "TaichiSLAMNode", "demo",
+                "demo_synthetic", "gen_topo_graph"]
+
+
+def _run_node_entry(kind, monkeypatch, cpu=False):
+    """Build the node or run a CLI as a user would; ``cpu`` asks for the
+    CPU (``device="cpu"``, or the CLIs' ``--cpu``). Returns the map the
+    node built, or None for a CLI."""
+    if kind == "TaichiSLAMNodeCore":
+        from taichislam_tpu_torch.node.core import TaichiSLAMNodeCore
+        return TaichiSLAMNodeCore(
+            get_param=lambda n, d=None: NODE_PARAMS.get(n, d),
+            **({"device": "cpu"} if cpu else {})).mapping
+    if kind == "TaichiSLAMNode":
+        from tests.test_torch_ros_shell import SHELL, _import_shell
+        import sys
+        params = dict(NODE_PARAMS, **{"~enable_rendering": False})
+        module, _ = _import_shell(monkeypatch, params, [], lambda t: None)
+        try:
+            return module.TaichiSLAMNode(
+                **({"device": "cpu"} if cpu else {})).mapping
+        finally:
+            sys.modules.pop(SHELL, None)
+    flag = ["--cpu"] if cpu else []
+    if kind == "demo":
+        from taichislam_tpu_torch import demo
+        demo.main(["-m", "tsdf", "--map-size", "3.2", "3.2", "--voxel-size",
+                   "0.1", "--blk", "8"] + flag)
+    elif kind == "demo_synthetic":
+        from taichislam_tpu_torch.examples import demo_synthetic
+        demo_synthetic.main(["--frames", "1"] + flag)
+    else:
+        from taichislam_tpu_torch.examples import gen_topo_graph
+        gen_topo_graph.main(["--benchmark", "--run_num", "1"] + flag)
+    return None
+
+
+@pytest.mark.parametrize("kind", NODE_ENTRIES)
+def test_node_entry_points_raise_without_a_card(kind, monkeypatch,
+                                                tmp_path):
+    """Without a card, the node and the CLIs without --cpu raise, naming
+    the way out; they never fall back to the CPU."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _run_node_entry(kind, monkeypatch)
+    if kind.startswith("TaichiSLAM"):
+        m = _run_node_entry(kind, monkeypatch, cpu=True)
+        assert m.device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("kind", NODE_ENTRIES)
+def test_node_entry_points_default_to_the_card(kind, monkeypatch, tmp_path):
+    """With a card present and no device asked for, the node and the CLIs
+    put their first map on ``cuda``."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    asked = []
+
+    def make_state(cfg, device=None):
+        asked.append(torch.device(device))
+        raise _Asked
+    monkeypatch.setattr(dense_tsdf.tsdf_ops, "make_tsdf_state", make_state)
+    with pytest.raises(_Asked):
+        _run_node_entry(kind, monkeypatch)
+    assert [d.type for d in asked] == ["cuda"]

@@ -163,13 +163,16 @@ def test_bin_bucket_rule_matches_jax(n):
 
 
 def test_unported_modes_raise():
-    """recast_depth_sequence is not ported: the models raise, naming the
-    roadmap item (esdf_check_interval > 1 is accepted and runs interval 1,
-    see test_torch_esdf.py)."""
+    """No mode of the models raises any more: recast_depth_sequence runs
+    (tests/test_torch_sequence.py holds it to the JAX sequences), and
+    esdf_check_interval > 1 is accepted and runs interval 1 (see
+    test_torch_esdf.py). A window of one empty frame leaves the map
+    empty."""
     from taichislam_tpu_torch.models.dense_tsdf import DenseTSDF
     kw = {k: v for k, v in KW.items() if not k.startswith(("esdf", "max_e"))}
     for m in (TModel(**KW, device=DEV), DenseTSDF(**kw, device=DEV)):
-        with pytest.raises(NotImplementedError,
-                           match="Sequences and deferred verdicts"):
-            m.recast_depth_sequence([np.eye(3)], [np.zeros(3)],
-                                    [np.zeros((48, 64), np.uint16)])
+        m.set_dep_camera_intrinsic(_small_K())
+        m.recast_depth_sequence([np.eye(3)], [np.zeros(3)],
+                                [np.zeros((48, 64), np.uint16)])
+        assert m.count_active() == 0
+        assert int(m.last_stats["max_dropped"]) == 0

@@ -76,7 +76,39 @@ Phases:
  14. the bundle-adjustment demo's gradient descent on the card to the JAX
      demo's convergence test, against the CPU; NNLS.solve_lm on the linear
      fit and the rotation BA of tests/test_opti.py, card against CPU within
-     1e-4.
+     1e-4;
+ 15. TaichiSLAMNodeCore at the node's defaults with the ESDF type, the
+     published map and its z = 0 slice and a browser-viewer render: 16
+     orbit frames as fake messages through process_taichi and rendering()
+     (per-frame ESDF mode, slice and surface counts, triangles, wall ms);
+     then 4 frames on a 10 x 10 m map, a core on the card against a core on
+     the CPU, published clouds exact;
+ 16. two cores with the launch file's parameters (drones 0 and 1) on a
+     LoopbackTransport hub: 40 frames, boundary ms, drone 1's submaps, the
+     PGO refuse, and which transport make_udpm_transport would pick;
+ 17. the entry points (demo_synthetic --topo --two-drones, demo -m tsdf
+     with the browser viewer, gen_topo_graph --benchmark), each in its own
+     process (wall s);
+ 18. recast_depth_sequence on the bench-sized map against the per-frame
+     loop (DenseTSDF, DenseESDF at 6 and 32 sweeps, SubmapMapping), exact;
+ 19. ShardedDenseTSDF at its own defaults (10 x 10 m, 5 cm, V = 16, 8192
+     slots, f32, ESDF 8 sweeps and cap 512) over phase 3's frames: on a
+     one-rank NCCL mesh, its ESDF equal after every frame to a
+     single-device esdf_update chain on its state, K2 launched at the
+     sharded call site and in the profiler, its integrate against the same
+     model on the CPU (TSDF within 1e-5); then on 4 gloo ranks sharing the
+     card, every rank's gathered map, ESDF, surface export and mesh patch
+     equal to the one-rank run (ms/frame, collective bytes and peak memory
+     per rank); then one rank and 4 ranks again with max_blocks cut so that
+     the blocks land in every shard (every rank's K1 reduces lanes), equal;
+ 20. 4 drones as 4 gloo ranks sharing the card, with the launch file's
+     submap and global configurations: 20 frames each through
+     multi_drone_lifecycle_step (ESDF budget 6, mesh patch), then
+     multi_drone_fuse; each drone exactly equal to the same drone run alone
+     through the single-device ops, the fused map against fuse_submaps (ms
+     per step and per fuse, the fuse's collective bytes). The ranks' launch
+     counts add into the kernels line; the kernels are built once, in
+     phase 1, before any rank starts.
 
 Exits non-zero without a result when no CUDA device is present. The last
 line is {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -85,6 +117,7 @@ Usage: python3 chip_smoke.py
 """
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -263,6 +296,13 @@ ALLOC_OPS = ("aten::empty", "aten::empty_like", "aten::empty_strided")
 K1_STAGES = ("k1_init", "k1_prepare", "k1_heads", "k1_reduce")
 
 
+def kernel_name(k):
+    """A profiler's kernel name without its return type, namespace and
+    arguments."""
+    k = k.replace("void ", "").replace("(anonymous namespace)::", "")
+    return k.split("(")[0]
+
+
 def profile_line(tag, fn, ms, prefix, expect=()):
     """Print the kernels of one call (count and device ms by name) beside
     its event time; require that the call ran only kernels whose names hold
@@ -279,8 +319,7 @@ def profile_line(tag, fn, ms, prefix, expect=()):
         return None, None
     short = {}
     for k, (n, us) in kernels.items():
-        k = k.replace("void ", "").replace("(anonymous namespace)::", "")
-        k = k.split("(")[0].split("<")[0]
+        k = kernel_name(k).split("<")[0]
         n0, us0 = short.get(k, (0, 0.0))
         short[k] = (n0 + n, us0 + us)
     n_k = sum(n for n, _ in short.values())
@@ -2100,6 +2139,583 @@ def sequence_phase(dev, frames, texs, n=6, n_sub=9):
         + "; ".join(f"{k} {v}" for k, v in out))
 
 
+# ---------------------------------------------------------------------------
+# phases 19-20: the multi-card compositions, several ranks on one card
+# ---------------------------------------------------------------------------
+
+SHARD_RANKS = 4
+DRONES = 4
+DRONE_FRAMES = 20
+DRONE_SWEEPS = 6
+DRONE_ESDF_CAP = 256
+DRONE_FUSE_BLOCKS = 256
+DRONE_TRIANGLES = 1 << 18
+DRONE_MESH_CAP = 128
+# the launch file's node (phase 16) without its multicast comm: phase 20's
+# ranks stand for the drones
+DRONE_PARAMS = dict(LAUNCH_PARAMS, **{"~enable_multi": False})
+
+
+def sharded_pass(mesh, kw, frames, spy=None):
+    """Drive a ShardedDenseTSDF with ``kw`` on ``mesh`` over ``frames``
+    (depth, Rs, Ts, K): per frame the wall ms (closed by a synchronize)
+    and the sweeps, and ``spy(f, model, touched)`` after each frame when
+    given. Returns (model, ms per frame, sweeps per frame)."""
+    import torch
+    from taichislam_tpu_torch.models.sharded_dense_tsdf import \
+        ShardedDenseTSDF
+    depth, Rs, Ts, K = frames
+    m = ShardedDenseTSDF(mesh=mesh, **kw)
+    m.set_dep_camera_intrinsic(K)
+    seen = {}
+    integrate = m._integrate_fn
+
+    def recorded(*args):
+        st, touched = integrate(*args)
+        seen["touched"] = touched
+        return st, touched
+    m._integrate_fn = recorded
+    ms, sweeps = [], []
+    for f in range(len(depth)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.recast_depth_to_map(Rs[f], Ts[f], depth[f])
+        torch.cuda.synchronize()
+        ms.append(1000 * (time.perf_counter() - t0))
+        sweeps.append(m.last_esdf_sweeps)
+        if spy is not None:
+            spy(f, m, seen["touched"])
+    return m, np.array(ms), sweeps
+
+
+def sharded_outputs(m):
+    """What a ShardedDenseTSDF holds and exports, gathered and on the host
+    (the same on every rank): tables, the allocated rows of every channel
+    and of the ESDF field and flags, the re-queue bitmap, the surface
+    export (rows sorted) and the incremental mesh patch (vertex rows
+    sorted). Each rank's rows past the allocated ones must be zero; only
+    the allocated rows are gathered."""
+    import torch
+    st, mesh = m.state, m.mesh
+    nbk = int(st.num_blocks)
+    rows = m.esdf.shape[0]
+    k = min(rows, nbk)           # rows each rank sends, padded alike
+    own = [min(k, max(0, nbk - r * rows)) for r in range(mesh.size)]
+    out = {"table": st.table, "block_coords": st.block_coords,
+           "num_blocks": st.num_blocks, "pending": m._esdf_pending}
+    local = {"esdf": m.esdf, "fixed": m.esdf_fixed, **st.channels}
+    for name, v in local.items():
+        require(not bool(v[own[mesh.rank]:].any()),
+                f"{name}: rows past the allocated {nbk} are not zero")
+        g = mesh.all_gather(v[:k])
+        out[name] = torch.cat([g[r * k:r * k + own[r]]
+                               for r in range(mesh.size)])
+    out = {name: v.cpu().numpy() for name, v in out.items()}
+    m.cvt_TSDF_surface_to_voxels()
+    n = m.num_TSDF_particles
+    xyzt = np.concatenate([m.export_TSDF_xyz[:n], m.export_TSDF[:n, None]],
+                          axis=1)
+    out["surface"] = xyzt[np.lexsort(xyzt.T[::-1])]
+    patch = m.extract_mesh(incremental=True)
+    nt = int(patch["num_triangles"])
+    v = patch["vertices"][:nt * 3].cpu().numpy()
+    out["mesh"] = v[np.lexsort(v.T[::-1])]
+    return out
+
+
+def compare_sharded(ref, got, tag):
+    """Hold ``got`` against ``ref`` (both from :func:`sharded_outputs`),
+    every array exactly: each rank's K1 sums a voxel's lanes in their lane
+    order, whichever rank holds them."""
+    for k, want in ref.items():
+        have = got[k]
+        require(want.shape == have.shape, f"{tag}: {k} shape {have.shape} "
+                f"for {want.shape}")
+        if not np.array_equal(have, want):
+            err = np.abs(have.astype(np.float64) - want.astype(np.float64))
+            require(False, f"{tag}: {k} differs (max abs {err.max()})")
+
+
+def count_sharded_lanes():
+    """Wrap the sharded integrate's K1 call in this process so that the
+    march lanes it hands K1 (keys other than the sentinel) add up on the
+    card; returns the one-element list that holds the running count."""
+    import torch
+    from taichislam_tpu_torch.parallel import block_sharded as bs
+    k1 = bs.segmented_block_reduce
+    lanes = [torch.zeros((), dtype=torch.int64)]
+
+    def counted(bkey, *args, **kw):
+        lanes[0] = lanes[0].to(bkey.device) + (bkey != bs.SENTINEL_BLOCK).sum()
+        return k1(bkey, *args, **kw)
+    bs.segmented_block_reduce = counted
+    return lanes
+
+
+def time_collectives(mesh):
+    """Wrap the mesh's collectives so that their wall time adds up, the
+    card synchronised on both sides (queued kernels are not charged to
+    them); returns the dict that holds the seconds and the calls."""
+    import torch
+    spent = {"s": 0.0, "calls": 0, "frames": []}
+    for name in ("all_gather", "psum", "any"):
+        def timed(t, fn=getattr(mesh, name)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(t)
+            torch.cuda.synchronize()
+            spent["s"] += time.perf_counter() - t0
+            spent["calls"] += 1
+            return out
+        setattr(mesh, name, timed)
+    return spent
+
+
+def frame_split(ms, spent):
+    """(frame 0's ms and collective ms, the later frames' mean ms and mean
+    collective ms) from per-frame wall ms and the cumulative collective
+    seconds recorded after each frame: frame 0 holds the communicators'
+    set-up and the first allocations."""
+    c = np.diff(np.concatenate([[0.0], spent["frames"]])) * 1000
+    return ms[0], c[0], ms[1:].mean(), c[1:].mean()
+
+
+def record_frames(spent):
+    """A sharded_pass spy that records the collective seconds so far."""
+    return lambda f, m, touched: spent["frames"].append(spent["s"])
+
+
+def sharded_rank(mesh, passes, frames):
+    """Phase 19's rank: for each (model keywords, one-rank outputs path)
+    of ``passes``, the same frames through ShardedDenseTSDF on this rank's
+    shard, its launch counts, the march lanes its K1 reduced, the
+    allocated blocks its shard holds, per-frame ms, collective bytes and
+    peak memory, and its gathered outputs held against the one-rank run.
+    Returns one result per pass."""
+    import torch
+    lanes = count_sharded_lanes()
+    spent = time_collectives(mesh)
+    out = []
+    for kw, ref_path in passes:
+        counters = reset_counts()
+        lanes[0] = torch.zeros((), dtype=torch.int64)
+        spent.update(s=0.0, calls=0, frames=[])
+        mesh.bytes_moved = 0
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        m, ms, sweeps = sharded_pass(mesh, kw, frames,
+                                     spy=record_frames(spent))
+        torch.cuda.synchronize()
+        got = dict(zip(("K1", "K2", "K3"), (c.launches for c in counters)))
+        moved, peak = mesh.bytes_moved, torch.cuda.max_memory_allocated()
+        coll = frame_split(ms, spent)
+        rows = m.esdf.shape[0]
+        lo = mesh.rank * rows
+        table = m.state.table
+        held = int(((table >= lo) & (table < lo + rows)).sum())
+        with np.load(ref_path) as z:
+            ref = dict(z)
+        compare_sharded(ref, sharded_outputs(m), f"rank {mesh.rank}")
+        del m
+        out.append(dict(launches=got, ms=ms.tolist(), sweeps=sweeps,
+                        bytes=moved, peak=peak, coll=coll,
+                        lanes=int(lanes[0]), held=held))
+    return out
+
+
+def sharded_phase(dev, smi, frames, cfg3, launches):
+    """Phase 19: ShardedDenseTSDF at its own defaults (10 x 10 m, 5 cm,
+    V = 16, 8192 slots, f32, ESDF 8 sweeps and cap 512, surface cap 512)
+    with phase 3's sized bins, over the bench frames: on a one-rank NCCL
+    mesh, its ESDF held after every frame against a single-device
+    esdf_update chain on its state, and its integrate against the same
+    model on the CPU (4 frames); then on 4 gloo ranks sharing the card,
+    every rank's gathered map, ESDF, surface export and mesh patch held
+    against the one-rank run, exactly; then both again with max_blocks
+    cut so that the blocks land in every rank's shard."""
+    import torch
+    from taichislam_tpu_torch.ops import esdf as esdf_ops
+    from taichislam_tpu_torch.parallel.mesh import make_mesh, spawn_mesh
+    kw = dict(max_bins=cfg3.max_bins, max_march_lanes=cfg3.max_march_lanes)
+    mesh = make_mesh(1, "block", device=dev, backend="nccl")
+    counters = reset_counts()
+    # earlier phases' unreachable tensors go now, not during the pass,
+    # where their release would hide the pass's own peak
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    spent = time_collectives(mesh)
+    m, ms, sweeps = sharded_pass(mesh, kw, frames, spy=record_frames(spent))
+    torch.cuda.synchronize()
+    got, sites = read_counts(counters, launches)
+    peak = torch.cuda.max_memory_allocated() - base
+    coll = frame_split(ms, spent)
+    require(got["K1"] > 0 and got["K2"] > 0 and sites.get("sharded", 0) > 0,
+            f"sharded map: K1 or K2 not launched ({got}, {sites})")
+    cfg = m.cfg
+    V, nb = cfg.grid.V, cfg.grid.max_blocks + 1
+    W3 = (V + 2) ** 3
+    log(f"[phase19] one-rank NCCL mesh: launches {got}, K1 by site {sites}, "
+        f"per frame K1 {got['K1'] / N_FRAMES:.2f} K2 "
+        f"{got['K2'] / N_FRAMES:.2f}; sweeps {sweeps}; ms/frame "
+        f"{np.round(ms, 3).tolist()}, mean {ms.mean():.3f} ({smi}); "
+        f"collectives: frame 0 {coll[1]:.3f} of {coll[0]:.3f} ms, frames "
+        f"1-{N_FRAMES - 1} {coll[3]:.3f} of {coll[2]:.3f} ms/frame; peak "
+        f"{peak / 2**20:.1f} MiB above what earlier phases hold")
+
+    # K2 at the sharded call site, in the profiler
+    esdf_fn = m._esdf_fn(m._esdf_cap_bucket)
+    every = m.state.block_active.clone()
+    kernels, _ = profile_call(lambda: esdf_fn(
+        m.state, m.esdf.clone(), m.esdf_fixed.clone(), 0, every),
+        expect=("k2_kernel",))
+    k2 = {k: v for k, v in kernels.items() if "k2_kernel" in k}
+    require(k2, f"sharded ESDF: no k2_kernel in the profiler ({kernels})")
+    nbk = int(m.state.num_blocks)
+    log(f"[phase19] profiler, one sharded ESDF update over all {nbk} "
+        f"blocks: " + ", ".join(
+            f"{kernel_name(k)} {n}x {us / 1000:.4f} ms"
+            for k, (n, us) in k2.items()))
+    cap = m.esdf_block_cap
+    ref = sharded_outputs(m)
+    ref_path = OUT_DIR / "sharded_ref.npz"
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    np.savez(ref_path, **ref)
+    del m
+
+    # the same frames again, held after every frame against a
+    # single-device esdf_update chain on the model's own state
+    chain, snap = {}, {}
+
+    def check(f, m, touched):
+        if not chain:
+            shape = (nb, cfg.grid.voxels_per_block)
+            chain.update(e=torch.zeros(shape, device=dev),
+                         fx=torch.zeros(shape, dtype=torch.int8, device=dev),
+                         p=torch.zeros((nb,), dtype=torch.bool, device=dev))
+        e, fx, _, sw, ch, _ = esdf_ops.esdf_update(
+            cfg, m.max_esdf_sweeps, m._esdf_cap_bucket, m.state, chain["e"],
+            chain["fx"], 0, touched | chain["p"])
+        chain["p"] = ch
+        require(torch.equal(e, m.esdf) and torch.equal(fx, m.esdf_fixed)
+                and int(sw) == m.last_esdf_sweeps and
+                torch.equal(ch, m._esdf_pending),
+                f"sharded ESDF frame {f}: not the single-device chain's "
+                f"(sweeps {m.last_esdf_sweeps} vs {int(sw)}, max abs "
+                f"{float((e - m.esdf).abs().max())})")
+        if f == CPU_FRAMES - 1:
+            snap.update(table=m.state.table.cpu(),
+                        obs=m.state.channels["TSDF_observed"].cpu(),
+                        occ=m.state.channels["occupy"].cpu(),
+                        tsdf=m.state.channels["TSDF"].cpu())
+    m, _, sweeps2 = sharded_pass(mesh, kw, frames, spy=check)
+    require(sweeps2 == sweeps, "sharded map: a second pass swept otherwise")
+    compare_sharded(ref, sharded_outputs(m), "one rank, second pass")
+    del m
+    log(f"[phase19] one rank against the single-device esdf_update chain "
+        f"(K3) after every frame: field, fixed flags, sweeps and re-queue "
+        f"bitmap exact over {N_FRAMES} frames")
+
+    cpu = torch.device("cpu")
+    cmesh = make_mesh(1, "block", device=cpu, backend="gloo")
+    c, _, _ = sharded_pass(cmesh, dict(kw, enable_esdf=False),
+                           [x[:CPU_FRAMES] for x in frames[:3]] + [frames[3]])
+    require(torch.equal(c.state.table, snap["table"]) and
+            torch.equal(c.state.channels["TSDF_observed"], snap["obs"]) and
+            torch.equal(c.state.channels["occupy"], snap["occ"]),
+            "sharded integrate card vs CPU: tables or flags")
+    e_tsdf = float((c.state.channels["TSDF"] - snap["tsdf"]).abs().max())
+    # K1 sums f32 values at this site (no f16 rounding, unlike phase 4's)
+    require(e_tsdf <= 1e-5, f"sharded integrate card vs CPU: TSDF {e_tsdf}")
+    del c
+    log(f"[phase19] sharded integrate card vs CPU over {CPU_FRAMES} frames: "
+        f"tables and flags exact, TSDF max abs {e_tsdf} (limit 1e-5)")
+
+    # the same frames with the slots cut so that the blocks land in every
+    # shard: ranks 1-3 reduce lanes and scatter into their own rows too
+    n = SHARD_RANKS
+    shard = -(-2 * nbk // (2 * n - 1))      # ceil(nbk / (n - 1/2))
+    cut = dict(kw, max_blocks=n * shard - 1)
+    m, _, cut_sweeps = sharded_pass(mesh, cut, frames)
+    require(int(m.state.num_blocks) == nbk,
+            f"cut map: {int(m.state.num_blocks)} blocks for {nbk}")
+    cut_path = OUT_DIR / "sharded_cut_ref.npz"
+    np.savez(cut_path, **sharded_outputs(m))
+    del m
+
+    # both maps on 4 gloo ranks, one spawn
+    t0 = time.perf_counter()
+    res = spawn_mesh(sharded_rank, n, backend="gloo", device=dev,
+                     args=([(kw, str(ref_path)), (cut, str(cut_path))],
+                           frames), axis="block", store_dir=OUT_DIR,
+                     threads=2)
+    wall = time.perf_counter() - t0
+    ref_path.unlink()
+    cut_path.unlink()
+    full, spread = [o[0] for o in res], [o[1] for o in res]
+    for got, want in ((full, sweeps), (spread, cut_sweeps)):
+        for r, out in enumerate(got):
+            for k, v in out["launches"].items():
+                launches[k] += v
+            require(out["sweeps"] == want, f"rank {r}: sweeps {out['sweeps']}")
+        tot = {k: sum(o["launches"][k] for o in got) for k in ("K1", "K2")}
+        require(tot["K1"] > 0 and tot["K2"] > 0, f"4 ranks: launches {tot}")
+    require(all(o["held"] > 0 and o["lanes"] > 0 for o in spread),
+            f"cut map: a shard without blocks or K1 lanes: held "
+            f"{[o['held'] for o in spread]}, lanes "
+            f"{[o['lanes'] for o in spread]}")
+    log(f"[phase19] {n} gloo ranks on one card, both maps in one spawn "
+        f"({wall:.1f} s with the spawn)")
+    log(f"[phase19] {n} gloo ranks: every rank's gathered channels, ESDF, "
+        f"flags, re-queue bitmap, surface export and mesh patch equal the "
+        f"one-rank run exactly; launches per rank "
+        f"{[o['launches'] for o in full]}; {nbk} blocks, held per rank "
+        f"{[o['held'] for o in full]} of {nb // n} slots, march lanes K1 "
+        f"reduced per rank {[o['lanes'] for o in full]} (slots are handed "
+        f"out in order, so the first shard fills first)")
+    rows = -(-(cap + 1) // (8 * n)) * (8 * n)
+    for r, out in enumerate(full):
+        ms_r = np.array(out["ms"])
+        log(f"[phase19] rank {r}: ms/frame mean {ms_r.mean():.3f} "
+            f"({np.round(ms_r, 3).tolist()}); collectives: frame 0 "
+            f"{out['coll'][1]:.3f} of {out['coll'][0]:.3f} ms, frames "
+            f"1-{N_FRAMES - 1} {out['coll'][3]:.3f} of {out['coll'][2]:.3f} "
+            f"ms/frame; collective payload "
+            f"{out['bytes'] / N_FRAMES / 2**20:.2f} MiB/frame; peak "
+            f"{out['peak'] / 2**20:.1f} MiB ({smi})")
+    log(f"[phase19] per-sweep all_gather at the largest cap ({cap} rows, "
+        f"NROWS {rows}): {rows // n * W3 * 4 / 2**20:.2f} MiB sent and "
+        f"{rows * W3 * 4 / 2**20:.2f} MiB received per rank")
+    log(f"[phase19] {n} gloo ranks, max_blocks cut to {n * shard - 1} "
+        f"({shard} slots a rank; a cut of scale): {nbk} blocks, held per "
+        f"rank {[o['held'] for o in spread]}, march lanes K1 reduced per "
+        f"rank {[o['lanes'] for o in spread]}; every rank's gathered map, "
+        f"ESDF, flags, re-queue bitmap, surface export and mesh patch equal "
+        f"a one-rank run at the cut exactly; launches per rank "
+        f"{[o['launches'] for o in spread]}; ms/frame mean per rank "
+        f"{[round(float(np.mean(o['ms'])), 3) for o in spread]} ({smi})")
+
+
+def drone_frames(frames, d):
+    """Drone ``d``'s flight: 20 of the orbit's frames from its own start
+    along the orbit, in a room translated by its own offset (a rigid
+    shift of every pose keeps the depth frames consistent)."""
+    depth, Rs, Ts = frames
+    idx = [(10 * d + f) % len(depth) for f in range(DRONE_FRAMES)]
+    off = np.array([0.5 * d, -0.3 * d, 0.0], np.float32)
+    return depth[idx], Rs[idx], Ts[idx] + off
+
+
+def drone_summary(sub_cfg, life, patch, g=None):
+    """One drone's lifecycle state, ESDF and last mesh patch on the host,
+    allocated rows only, and the global map's totals when given."""
+    st = life["state"]
+    nbk = int(st.num_blocks)
+    table = st.table.cpu().numpy()
+    used = np.nonzero(table >= 0)[0]
+    out = dict(num_blocks=nbk, table_idx=used, table_val=table[used],
+               active=life["active"], base_R=life["base_R"].copy(),
+               base_T=life["base_T"].copy(),
+               pending=life["pending"].cpu().numpy())
+    for k in ("TSDF", "W_TSDF", "TSDF_observed", "occupy"):
+        out[k] = st.channels[k][:nbk].cpu().numpy()
+    out["esdf"] = life["esdf"][:nbk].cpu().numpy()
+    out["fixed"] = life["fixed"][:nbk].cpu().numpy()
+    nt = int(patch["counts"][0])
+    out["counts"] = patch["counts"].cpu().numpy()
+    out["vertices"] = patch["vertices"][:nt * 3].cpu().numpy()
+    if g is not None:
+        out["global"] = dict(
+            num_blocks=int(g.num_blocks),
+            tsdf_sum=float(g.channels["TSDF"].double().sum()),
+            observed=int((g.channels["TSDF_observed"] > 0).sum()))
+    return out
+
+
+def drone_rank(mesh, sub_cfg, glob_cfg, frames):
+    """Phase 20's rank: drone ``rank`` through multi_drone_lifecycle_step
+    (ESDF and mesh patch on), then multi_drone_fuse; its launch counts,
+    step and fuse ms, the fuse's collective bytes and its summary."""
+    import torch
+    from taichislam_tpu_torch.ops import tsdf as tsdf_ops
+    from taichislam_tpu_torch.parallel.multi_drone import (
+        make_lifecycle_states, multi_drone_fuse, multi_drone_lifecycle_step)
+    dev = mesh.device
+    depth, Rs, Ts = drone_frames(frames, mesh.rank)
+    K = torch.from_numpy(KDEPTH).to(dev)
+    counters = reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    life = make_lifecycle_states(sub_cfg, with_esdf=True, device=dev)
+    step = multi_drone_lifecycle_step(
+        sub_cfg, KEYFRAME_STEP, mesh, esdf_sweeps=DRONE_SWEEPS,
+        esdf_block_cap=DRONE_ESDF_CAP, mesh_triangles=DRONE_TRIANGLES,
+        mesh_block_cap=DRONE_MESH_CAP)
+    ms, stats = [], []
+    for f in range(DRONE_FRAMES):
+        d = torch.from_numpy(depth[f].astype(np.int32)).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        life, patch = step(life, d, Rs[f], Ts[f], True, K)
+        torch.cuda.synchronize()
+        ms.append(1000 * (time.perf_counter() - t0))
+        stats.append(life["esdf_stats"].tolist() +
+                     patch["counts"].tolist())
+    g = tsdf_ops.make_tsdf_state(glob_cfg, device=dev)
+    fuse = multi_drone_fuse(sub_cfg, glob_cfg, DRONE_FUSE_BLOCKS, mesh,
+                            with_esdf=True)
+    mesh.bytes_moved = 0
+    spent = time_collectives(mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g = fuse(life, g)
+    torch.cuda.synchronize()
+    fuse_ms = 1000 * (time.perf_counter() - t0)
+    got = dict(zip(("K1", "K2", "K3"), (c.launches for c in counters)))
+    return dict(launches=got, sites=dict(counters[0].site_launches), ms=ms,
+                stats=stats, fuse_ms=fuse_ms, fuse_bytes=mesh.bytes_moved,
+                fuse_coll_ms=1000 * spent["s"],
+                peak=torch.cuda.max_memory_allocated(),
+                summary=drone_summary(sub_cfg, life, patch, g))
+
+
+def sequential_drones(dev, sub_cfg, glob_cfg, frames):
+    """Phase 20's drones one after another through the single-device ops
+    (integrate_depth, esdf_update, dilate_blocks + extract_mesh) and
+    fuse_submaps into one global map on ``dev``. Returns each drone's
+    summary and the global map."""
+    import torch
+    from taichislam_tpu_torch.ops import esdf as esdf_ops
+    from taichislam_tpu_torch.ops import fusion as fusion_ops
+    from taichislam_tpu_torch.ops import marching_cubes as mc_ops
+    from taichislam_tpu_torch.ops import tsdf as tsdf_ops
+    from taichislam_tpu_torch.parallel.multi_drone import (
+        lifecycle_pose, make_lifecycle_states)
+    K = torch.from_numpy(KDEPTH).to(dev)
+    tex = torch.zeros((1, 1, 3), dtype=torch.uint8, device=dev)
+    S = sub_cfg.max_submap_num
+    g = tsdf_ops.make_tsdf_state(glob_cfg, device=dev)
+    out = []
+    for d in range(DRONES):
+        depth, Rs, Ts = drone_frames(frames, d)
+        life = make_lifecycle_states(sub_cfg, with_esdf=True, device=dev)
+        st = life["state"]
+        for f in range(DRONE_FRAMES):
+            act, R_in, T_in = lifecycle_pose(life, KEYFRAME_STEP, S, Rs[f],
+                                             Ts[f], True)
+            st, stats = tsdf_ops.integrate_depth(
+                sub_cfg, st, torch.from_numpy(depth[f].astype(np.int32)).to(
+                    dev), tex, torch.from_numpy(R_in).to(dev),
+                torch.from_numpy(T_in).to(dev), K, K, act)
+            dirty = stats["touched_blocks"] | life["pending"]
+            e, fx, _, _, ch, ov = esdf_ops.esdf_update(
+                sub_cfg, DRONE_SWEEPS, DRONE_ESDF_CAP, st, life["esdf"],
+                life["fixed"], act, dirty)
+            life["pending"] = torch.where(ov > 0, ch | dirty, ch)
+        life["state"] = st
+        dil = mc_ops.dilate_blocks(sub_cfg, st, act, stats["touched_blocks"])
+        mo = mc_ops.extract_mesh(sub_cfg, DRONE_TRIANGLES, 1, DRONE_MESH_CAP,
+                                 st, act, sub_cfg.tsdf_surface_thres,
+                                 block_mask=dil)
+        patch = dict(vertices=mo["vertices"], counts=torch.stack(
+            [mo["num_triangles"], mo["surface_blocks_dropped"],
+             torch.clamp(mo["total_triangles"] - mo["num_triangles"],
+                         min=0)]).to(torch.int32))
+        out.append(drone_summary(sub_cfg, life, patch))
+        g, fst = fusion_ops.fuse_submaps(
+            sub_cfg, glob_cfg, DRONE_FUSE_BLOCKS, g, st,
+            torch.from_numpy(life["base_R"]).to(dev),
+            torch.from_numpy(life["base_T"]).to(dev))
+        require(int(fst["fuse_dropped"]) == 0 and
+                int(fst["fuse_tiles_dropped"]) == 0, f"drone {d}: fuse drops")
+        del life, st
+    return out, g
+
+
+def drones_phase(dev, smi, frames, launches):
+    """Phase 20: 4 drones as 4 gloo ranks sharing the card, with the launch
+    file's submap and global configurations (untextured, 10 cm, V = 16:
+    what SubmapMapping builds from the node's get_submap_opts and
+    get_sdf_opts), each flying its own offset orbit for 20 frames through
+    the lifecycle step (keyframe_step 10, ESDF budget 6, mesh patch), then
+    the all-drone fuse; held against the same drones run one after another
+    through the single-device ops and fuse_submaps on the card."""
+    import torch
+    from taichislam_tpu_torch.parallel.mesh import spawn_mesh
+    core, _ = make_node(torch.device("cpu"), DRONE_PARAMS)
+    sub_cfg = core.mapping.submap_collection.cfg
+    glob_cfg = core.mapping.global_map.cfg
+    del core
+    gnb = glob_cfg.grid.max_blocks + 1
+    V3 = glob_cfg.grid.voxels_per_block
+    log(f"[phase20] configurations: submaps {sub_cfg.map_scale} m at "
+        f"{sub_cfg.voxel_scale} m, V = {sub_cfg.grid.V}, {sub_cfg.max_blocks} "
+        f"blocks x {sub_cfg.max_submap_num} submaps; global "
+        f"{glob_cfg.map_scale} m, {glob_cfg.max_blocks} blocks; the fuse "
+        f"sums 3 dense accumulators (untextured) of {gnb} x {V3} x 4 B = "
+        f"{3 * gnb * V3 * 4 / 2**20:.1f} MiB per rank (reckoned)")
+    t0 = time.perf_counter()
+    res = spawn_mesh(drone_rank, DRONES, backend="gloo", device=dev,
+                     args=(sub_cfg, glob_cfg, frames), axis="drone",
+                     store_dir=OUT_DIR, threads=2)
+    wall = time.perf_counter() - t0
+    tot = {k: sum(o["launches"][k] for o in res) for k in ("K1", "K2", "K3")}
+    fusion = sum(o["sites"].get("fusion", 0) for o in res)
+    for o in res:
+        for k, v in o["launches"].items():
+            launches[k] += v
+    require(tot["K1"] > 0 and tot["K3"] > 0 and fusion > 0,
+            f"drones: launches {tot}, K1 at fusion {fusion}")
+    for r, o in enumerate(res):
+        st = np.array(o["stats"])
+        require(int(st[:, 1].max()) == 0 and int(st[:, 3:].max()) == 0,
+                f"drone {r}: ESDF overflow or mesh drops {st.tolist()}")
+        require(int(st[:, 0].min()) > 0 and int(st[-1, 2]) > 0,
+                f"drone {r}: no sweeps or no triangles")
+
+    # the same drones one after another through the single-device ops
+    want, g = sequential_drones(dev, sub_cfg, glob_cfg, frames)
+    err = dict(TSDF=0.0, W_TSDF=0.0, esdf=0.0, vertices=0.0)
+    for d, o in enumerate(res):
+        have = o["summary"]
+        for k in ("num_blocks", "active", "table_idx", "table_val",
+                  "TSDF_observed", "occupy", "fixed", "pending", "counts",
+                  "base_R", "base_T"):
+            require(np.array_equal(np.asarray(want[d][k]),
+                                   np.asarray(have[k])),
+                    f"drone {d}: {k} differs from the sequential run")
+        for k in err:
+            err[k] = max(err[k], float(np.abs(want[d][k] - have[k]).max(
+                initial=0.0)))
+    require(all(v == 0.0 for v in err.values()),
+            f"drones against the sequential run: max abs {err}")
+    gl = res[0]["summary"]["global"]
+    require(all(o["summary"]["global"] == gl for o in res),
+            "drones: the fused global maps differ between ranks")
+    want_sum = float(g.channels["TSDF"].double().sum())
+    want_obs = int((g.channels["TSDF_observed"] > 0).sum())
+    require(gl["num_blocks"] == int(g.num_blocks) and
+            gl["observed"] == want_obs and
+            abs(gl["tsdf_sum"] - want_sum) <= 1e-4 * abs(want_sum),
+            f"drones: fused {gl} against sequential fuse_submaps "
+            f"{int(g.num_blocks)} blocks, {want_obs} observed, TSDF sum "
+            f"{want_sum}")
+    ms = np.array([o["ms"] for o in res])
+    log(f"[phase20] {DRONES} drones as gloo ranks on one card ({wall:.1f} s "
+        f"with the spawn): launches summed {tot} (K1 at fusion {fusion}); "
+        f"each drone's state, ESDF, flags, pending and mesh patch equal the "
+        f"sequential single-device run exactly; fused global {gl} against "
+        f"sequential fuse_submaps ({int(g.num_blocks)} blocks, {want_obs} "
+        f"observed, TSDF sum {want_sum})")
+    log(f"[phase20] lifecycle step ms per drone (mean) "
+        f"{np.round(ms.mean(1), 3).tolist()}, over all {ms.mean():.3f}; "
+        f"fuse ms {[round(o['fuse_ms'], 3) for o in res]}, of which "
+        f"collectives {[round(o['fuse_coll_ms'], 3) for o in res]}; fuse "
+        f"collective "
+        f"payload {res[0]['fuse_bytes'] / 2**20:.1f} MiB per rank; peak "
+        f"{[round(o['peak'] / 2**20, 1) for o in res]} MiB ({smi})")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2150,7 +2766,6 @@ def main():
     log(f"[phase3] sized: max_bins {cfg.max_bins} max_march_lanes "
         f"{cfg.max_march_lanes} max_touched_blocks {cfg.max_touched_blocks} "
         f"esdf_cap {cap}")
-
     k1.segmented_block_reduce.launches = 0
     ks.esdf_sweep.launches = 0
     ks.esdf_sweep_loop.launches = 0
@@ -2261,6 +2876,12 @@ def main():
     entry_points_phase(smi)
     sequence_phase(dev, (depth_n, Rs_n, Ts_n), texs)
     log(f"[phase18] phases 15-18 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- phases 19-20 ----------------------------------------------------
+    t0 = time.perf_counter()
+    sharded_phase(dev, smi, (depth, Rs, Ts, K), cfg, launches)
+    drones_phase(dev, smi, sub_frames, launches)
+    log(f"[phase20] phases 19-20 took {time.perf_counter() - t0:.1f} s")
 
     src = "taichislam_tpu_torch/csrc/"
     table = [("seg_accum (K1)", "K1", src + "seg_accum.cu",

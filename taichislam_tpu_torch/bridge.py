@@ -107,3 +107,28 @@ def esdf_state_from_numpy(arrays: Dict[str, np.ndarray],
 def esdf_state_to_numpy(arrays: Dict[str, torch.Tensor]
                         ) -> Dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy() for k, v in arrays.items()}
+
+
+def sharded_rows_from_numpy(a, mesh) -> torch.Tensor:
+    """This rank's rows of a full ``(max_blocks+1, ...)`` array (a channel,
+    an ESDF field or its flags; e.g. a sharded JAX array read with
+    ``np.asarray``), on the mesh's device."""
+    a = np.asarray(a)
+    rows = a.shape[0] // mesh.size
+    lo = mesh.rank * rows
+    return _to_tensor(a[lo:lo + rows], mesh.device)
+
+
+def sharded_state_from_numpy(state, mesh) -> GridState:
+    """This rank's shard (``parallel/block_sharded.py`` layout) of a full
+    GridState-like object of numpy arrays: the bookkeeping whole, the
+    channels' rows of this rank's slot range, on the mesh's device."""
+    dev = mesh.device
+    return GridState(
+        table=_to_tensor(state.table, dev),
+        block_coords=_to_tensor(state.block_coords, dev),
+        block_active=_to_tensor(state.block_active, dev),
+        num_blocks=_to_tensor(state.num_blocks, dev),
+        alloc_overflow=_to_tensor(state.alloc_overflow, dev),
+        channels={k: sharded_rows_from_numpy(v, mesh)
+                  for k, v in state.channels.items()})

@@ -23,6 +23,7 @@ See the JAX module for the algorithms. ``esdf_seed_dirty`` updates
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -211,40 +212,35 @@ def esdf_seed_dirty(cfg: TSDFConfig, state, seen_tsdf, seen_obs, touched,
     return dirty, seen_tsdf, seen_obs
 
 
-def esdf_update(cfg: TSDFConfig, max_sweeps: int, block_cap: int, state,
-                prev_esdf, prev_fixed, active_submap: int, dirty_blocks=None,
-                tsdf_src=None, obs_src=None):
-    """ESDF over the active submap's observed voxels, block mode.
+class WorkingSet(NamedTuple):
+    """The compacted rows of a block-mode ESDF update (see
+    :func:`working_set`)."""
+    blk: torch.Tensor          # (nb,) active-submap blocks
+    work_blk: torch.Tensor     # (nb,) blocks the update may change
+    slot_of: torch.Tensor      # (cap,) int32 storage slot per compact row
+    bvalid: torch.Tensor       # (cap,) bool
+    n_upd: torch.Tensor        # 0-d: updatable rows (a Morton-ordered prefix)
+    overflow: torch.Tensor     # 0-d int32: rows past the cap
+    inv: torch.Tensor          # (nb,) int32 compact row of a slot, cap if none
+    nslots: torch.Tensor       # (27, NROWS) int32 compact neighbour rows
+    updatable: torch.Tensor    # (NROWS,) bool
+    ns_flat: Optional[torch.Tensor]   # (27, cap) neighbour slots of dirty rows
+    rows_d: Optional[torch.Tensor]    # (cap,) int32 dirty rows
+    validD: Optional[torch.Tensor]    # (cap,) bool
 
-    Without ``dirty_blocks`` the working set is every active block; with it,
-    the dirty blocks plus their 26-ring as a frozen (Dirichlet) rim.
-    ``tsdf_src`` / ``obs_src`` replace the live channels as the seed source
-    (the consume-once snapshots of ``esdf_seed_dirty``).
 
-    Returns (esdf, fixed, observed_mask, sweeps_run, changed_blocks,
-    block_cap_overflow); ``esdf`` and ``fixed`` are ``prev_esdf`` and
-    ``prev_fixed`` updated in place. Counts are 0-d int32 tensors.
-    """
-    spec = cfg.grid
-    V = spec.V
+def working_set(spec, state, active_submap: int, block_cap: int, NROWS: int,
+                dirty_blocks=None) -> WorkingSet:
+    """The rows of an update: without ``dirty_blocks`` every active block;
+    with it the dirty blocks (updatable) and then their 26-ring as a frozen
+    rim, Morton-ordered within each group, plus the compact neighbour table
+    padded to ``NROWS`` rows. Depends on the replicated bookkeeping only."""
     nb = spec.max_blocks + 1
-    dev = prev_esdf.device
-    gamma = cfg.voxel_scale
-    max_ray = cfg.max_ray_length
-    s_id = int(active_submap)
+    dev = state.table.device
     cap = block_cap
-
-    tsdf_full = state.channels["TSDF"] if tsdf_src is None else tsdf_src
-    obs_full = (state.channels["TSDF_observed"] > 0 if obs_src is None
-                else obs_src)
-    blk = state.block_active & (state.block_coords[:, 0] == s_id)
+    blk = state.block_active & (state.block_coords[:, 0] == int(active_submap))
     blk[-1] = False
-    participate_full = obs_full & blk[:, None]
-
-    # compact rows padded once to a multiple of the 8-row slab
-    NROWS = cap + 1 + ((-(cap + 1)) % 8)
     ar_cap = torch.arange(cap, device=dev)
-
     if dirty_blocks is None:
         work_blk = blk
         slot_of, bkept, btotal = _compact_rows(blk, cap, nb)
@@ -289,29 +285,6 @@ def esdf_update(cfg: TSDFConfig, max_sweeps: int, block_cap: int, state,
     inv = torch.full((nb,), cap, dtype=torch.int32, device=dev)
     inv[slot_l] = torch.where(bvalid, ar_cap.to(torch.int32), cap)
 
-    def gcomp(arr, fill):
-        out = torch.where(bvalid[:, None], arr[slot_l],
-                          torch.full((), fill, dtype=arr.dtype, device=dev))
-        pad = torch.full((NROWS - cap,) + tuple(out.shape[1:]), fill,
-                         dtype=arr.dtype, device=dev)
-        return torch.cat([out, pad], dim=0)
-
-    tsdf = gcomp(tsdf_full, 0).float()
-    participate = gcomp(participate_full, False)
-    prev_e = gcomp(prev_esdf, 0.0)
-    prev_f = gcomp(prev_fixed, 0)
-
-    fixed = participate & (tsdf.abs() < float(np.float32(gamma)))
-    sgn = (tsdf > 0).float() - (tsdf < 0).float()
-    seed = torch.where(fixed, tsdf, sgn * max_ray)
-    prev_ok = (torch.sign(prev_e) == torch.sign(seed)) & participate & \
-        (prev_e != 0) & ~((prev_f > 0) & ~fixed)
-    esdf0 = torch.where(fixed, seed,
-                        torch.where(prev_ok,
-                                    torch.clamp(prev_e, -max_ray, max_ray),
-                                    seed))
-    esdf0 = torch.where(participate, esdf0, 0.0)
-
     nslots = inv[neighbor_slot_cols(spec, state, slot_of).long()]
     nslots = torch.where(bvalid[None, :], nslots, cap)
     nslots = torch.cat([nslots, torch.full((27, NROWS - cap), cap,
@@ -322,12 +295,133 @@ def esdf_update(cfg: TSDFConfig, max_sweeps: int, block_cap: int, state,
     updatable = torch.cat([updatable, torch.zeros((NROWS - cap,),
                                                   dtype=torch.bool,
                                                   device=dev)])
+    return WorkingSet(blk, work_blk, slot_of, bvalid, n_upd, overflow_in,
+                      inv, nslots, updatable, ns_flat, rows_d, validD)
+
+
+def seed_field(cfg: TSDFConfig, tsdf, participate, prev_e, prev_f):
+    """(fixed, esdf0) of the compact rows: the near-surface band is fixed
+    at its TSDF; other participating voxels warm-start from the previous
+    field where its sign agrees, else from +-max_ray."""
+    max_ray = cfg.max_ray_length
+    fixed = participate & (tsdf.abs() < float(np.float32(cfg.voxel_scale)))
+    sgn = (tsdf > 0).float() - (tsdf < 0).float()
+    seed = torch.where(fixed, tsdf, sgn * max_ray)
+    prev_ok = (torch.sign(prev_e) == torch.sign(seed)) & participate & \
+        (prev_e != 0) & ~((prev_f > 0) & ~fixed)
+    esdf0 = torch.where(fixed, seed,
+                        torch.where(prev_ok,
+                                    torch.clamp(prev_e, -max_ray, max_ray),
+                                    seed))
+    return fixed, torch.where(participate, esdf0, 0.0)
+
+
+def sweep_kw(cfg: TSDFConfig):
+    """The constants K2 and K3 take."""
+    eps = max(cfg.esdf_raise_slack_voxels * cfg.voxel_scale, 1e-4)
+    return dict(V=cfg.grid.V, v1=cfg.voxel_scale, gamma=cfg.voxel_scale,
+                eps=eps, max_ray=cfg.max_ray_length)
+
+
+def scan_this_sweep(cfg: TSDFConfig, s: int) -> bool:
+    """Whether sweep ``s`` runs the multi-hop axis scans."""
+    return cfg.esdf_scan_sweeps < 0 or s < cfg.esdf_scan_sweeps or (
+        cfg.esdf_scan_period > 0 and s % cfg.esdf_scan_period == 0)
+
+
+def update_sides(ws: WorkingSet, V, tsdf, participate, fixed):
+    """The interior-only int8 update side (+1 / -1 / 0) in sweep layout."""
+    upd = ws.updatable[:, None]
+    pos_side = participate & ~fixed & (tsdf >= 0) & upd
+    neg_side = participate & ~fixed & (tsdf < 0) & upd
+    return (_to_sweep_layout(pos_side, V, False).to(torch.int8) -
+            _to_sweep_layout(neg_side, V, False).to(torch.int8))
+
+
+def requeue(cfg: TSDFConfig, ws: WorkingSet, esdf_c, prev_e, fixed, prev_f,
+            incremental: bool):
+    """The (nb,) re-queue bitmap: the updatable blocks whose rows changed
+    and, incrementally, the 26 neighbours of a dirty block whose boundary
+    shell changed."""
+    spec = cfg.grid
+    nb = spec.max_blocks + 1
+    cap = ws.slot_of.shape[0]
+    NROWS = ws.updatable.shape[0]
+    dev = esdf_c.device
+    diff = ((esdf_c - prev_e).abs() > float(np.float32(
+        cfg.esdf_converge_eps))) | (fixed != (prev_f > 0))
+    row_changed = diff.any(dim=1)
+    tgt = torch.where(ws.updatable[:cap], ws.slot_of.long(), nb)
+    changed_blocks = torch.zeros((nb + 1,), dtype=torch.bool, device=dev)
+    changed_blocks[tgt] = row_changed[:cap]
+    changed_blocks = changed_blocks[:nb]
+    changed_blocks[-1] = False
+    if incremental:
+        shell = _shell_mask(spec.V, dev)
+        shell_changed = (diff & shell[None, :]).any(dim=1)
+        tgtD = torch.where(ws.validD, ws.inv[ws.rows_d.long()], cap)
+        shell_d = shell_changed[torch.clamp(tgtD, max=NROWS - 1).long()] & \
+            ws.validD
+        tgt27 = torch.where(shell_d[None, :], ws.ns_flat, nb - 1)
+        shell_blocks = torch.zeros((nb,), dtype=torch.bool, device=dev)
+        shell_blocks[tgt27.reshape(-1).long()] = True
+        changed_blocks = changed_blocks | (ws.blk & shell_blocks)
+        changed_blocks[-1] = False
+    return changed_blocks
+
+
+def slab_rows(block_cap: int, n: int = 1) -> int:
+    """Compact rows of an update: ``block_cap + 1`` padded to a multiple of
+    8·n (the 8-row slab, and ``n`` equal chunks of a sharded update)."""
+    return -(-(block_cap + 1) // (8 * n)) * (8 * n)
+
+
+def esdf_update(cfg: TSDFConfig, max_sweeps: int, block_cap: int, state,
+                prev_esdf, prev_fixed, active_submap: int, dirty_blocks=None,
+                tsdf_src=None, obs_src=None):
+    """ESDF over the active submap's observed voxels, block mode.
+
+    Without ``dirty_blocks`` the working set is every active block; with it,
+    the dirty blocks plus their 26-ring as a frozen (Dirichlet) rim.
+    ``tsdf_src`` / ``obs_src`` replace the live channels as the seed source
+    (the consume-once snapshots of ``esdf_seed_dirty``).
+
+    Returns (esdf, fixed, observed_mask, sweeps_run, changed_blocks,
+    block_cap_overflow); ``esdf`` and ``fixed`` are ``prev_esdf`` and
+    ``prev_fixed`` updated in place. Counts are 0-d int32 tensors.
+    """
+    spec = cfg.grid
+    V = spec.V
+    nb = spec.max_blocks + 1
+    dev = prev_esdf.device
+    cap = block_cap
+    NROWS = slab_rows(cap)
+    ws = working_set(spec, state, active_submap, cap, NROWS, dirty_blocks)
+
+    tsdf_full = state.channels["TSDF"] if tsdf_src is None else tsdf_src
+    obs_full = (state.channels["TSDF_observed"] > 0 if obs_src is None
+                else obs_src)
+    participate_full = obs_full & ws.blk[:, None]
+    slot_l = ws.slot_of.long()
+
+    def gcomp(arr, fill):
+        out = torch.where(ws.bvalid[:, None], arr[slot_l],
+                          torch.full((), fill, dtype=arr.dtype, device=dev))
+        pad = torch.full((NROWS - cap,) + tuple(out.shape[1:]), fill,
+                         dtype=arr.dtype, device=dev)
+        return torch.cat([out, pad], dim=0)
+
+    tsdf = gcomp(tsdf_full, 0).float()
+    participate = gcomp(participate_full, False)
+    prev_e = gcomp(prev_esdf, 0.0)
+    prev_f = gcomp(prev_fixed, 0)
+    fixed, esdf0 = seed_field(cfg, tsdf, participate, prev_e, prev_f)
+    nslots, updatable = ws.nslots, ws.updatable
 
     esdf0_h = _to_sweep_layout(esdf0, V, 0.0)
     enc_hh = _assemble_sweep(_to_sweep_layout(
         torch.where(participate, tsdf, ENC_BIG), V, ENC_BIG), nslots, V)
-    eps = max(cfg.esdf_raise_slack_voxels * cfg.voxel_scale, 1e-4)
-    kw = dict(V=V, v1=cfg.voxel_scale, gamma=gamma, eps=eps, max_ray=max_ray)
+    kw = sweep_kw(cfg)
 
     if max_sweeps >= 2 and not cfg.esdf_force_sweeps:
         ss = max_sweeps if cfg.esdf_scan_sweeps < 0 else cfg.esdf_scan_sweeps
@@ -339,11 +433,8 @@ def esdf_update(cfg: TSDFConfig, max_sweeps: int, block_cap: int, state,
     else:
         # per-sweep path: the sweep counter advances only while the field
         # still changes; converged sweeps pass through (all slabs idle)
-        pos_side = participate & ~fixed & (tsdf >= 0) & updatable[:, None]
-        neg_side = participate & ~fixed & (tsdf < 0) & updatable[:, None]
-        side_hh = (_to_sweep_layout(pos_side, V, False).to(torch.int8) -
-                   _to_sweep_layout(neg_side, V, False).to(torch.int8))
-        upd_prefix = torch.arange(NROWS, device=dev) < n_upd
+        side_hh = update_sides(ws, V, tsdf, participate, fixed)
+        upd_prefix = torch.arange(NROWS, device=dev) < ws.n_upd
         esdf_h = esdf0_h
         changed = torch.ones((), dtype=torch.bool, device=dev)
         sweeps = torch.zeros((), dtype=torch.int32, device=dev)
@@ -353,10 +444,8 @@ def esdf_update(cfg: TSDFConfig, max_sweeps: int, block_cap: int, state,
             eh = _assemble_sweep(esdf_h, nslots, V)
             slab_act = (act & upd_prefix).view(-1, 8).any(dim=1).to(
                 torch.int32)
-            scan = cfg.esdf_scan_sweeps < 0 or s < cfg.esdf_scan_sweeps or (
-                cfg.esdf_scan_period > 0 and s % cfg.esdf_scan_period == 0)
-            new = esdf_sweep(eh, enc_hh, side_hh, slab_act, with_scans=scan,
-                             **kw)
+            new = esdf_sweep(eh, enc_hh, side_hh, slab_act,
+                             with_scans=scan_this_sweep(cfg, s), **kw)
             diff_rows = ((new - eh).abs() >
                          float(np.float32(cfg.esdf_converge_eps))
                          ).any(dim=2).any(dim=1)
@@ -381,25 +470,10 @@ def esdf_update(cfg: TSDFConfig, max_sweeps: int, block_cap: int, state,
 
     # re-queue: changed rows re-enter; a changed boundary shell also
     # re-queues the block's 26 neighbours
-    diff = ((esdf_c - prev_e).abs() > float(np.float32(
-        cfg.esdf_converge_eps))) | (fixed != (prev_f > 0))
-    row_changed = diff.any(dim=1)
-    changed_blocks = torch.zeros((nb,), dtype=torch.bool, device=dev)
-    changed_blocks[tgt] = row_changed[:cap]
-    changed_blocks[-1] = False
-    if dirty_blocks is not None:
-        shell = _shell_mask(V, dev)
-        shell_changed = (diff & shell[None, :]).any(dim=1)
-        tgtD = torch.where(validD, inv[rows_d.long()], cap)
-        shell_d = shell_changed[torch.clamp(tgtD, max=NROWS - 1).long()] & \
-            validD
-        tgt27 = torch.where(shell_d[None, :], ns_flat, nb - 1)
-        shell_blocks = torch.zeros((nb,), dtype=torch.bool, device=dev)
-        shell_blocks[tgt27.reshape(-1).long()] = True
-        changed_blocks = changed_blocks | (blk & shell_blocks)
-        changed_blocks[-1] = False
+    changed_blocks = requeue(cfg, ws, esdf_c, prev_e, fixed, prev_f,
+                             dirty_blocks is not None)
     return (prev_esdf, prev_fixed, participate_full, sweeps, changed_blocks,
-            overflow_in)
+            ws.overflow)
 
 
 # ---------------------------------------------------------------------------

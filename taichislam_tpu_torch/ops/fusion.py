@@ -235,6 +235,92 @@ def fuse_apply(glob_cfg: TSDFConfig, global_state: GridState,
     return global_state
 
 
+# ---------------------------------------------------------------------------
+# dense accumulators: what the multi-drone fusion sums over ranks
+# ---------------------------------------------------------------------------
+
+def accumulate_dense(glob_cfg: TSDFConfig, global_state: GridState,
+                     c: SplatContribs) -> torch.Tensor:
+    """The (table_size,) bool bitmap of the global blocks the splat
+    touches. The caller ORs it over ranks, allocates from it
+    (``allocate_from_touched``) and then calls
+    :func:`scatter_accumulators`."""
+    gspec = glob_cfg.grid
+    touched = torch.zeros((gspec.table_size + 1,), dtype=torch.bool,
+                          device=c.blin.device)
+    touched[torch.where(c.ok, c.blin, gspec.table_size).long()] = True
+    return touched[:gspec.table_size]
+
+
+def scatter_accumulators(glob_cfg: TSDFConfig, global_state: GridState,
+                         c: SplatContribs):
+    """Dense per-voxel sums ``(Σw, Σw·d, Σocc, Σw·c)`` of the splat over
+    the global grid: (nvox,) f32, (nvox,) f32, (nvox,) int32 and (3, nvox)
+    f32 (zeros when untextured), nvox = (max_blocks + 1)·V³. The lanes are
+    reduced per block by K1, with room for every global slot so no block
+    drops, and the block sums land at the slots the blocks hold (missing
+    blocks in the garbage row)."""
+    gspec = glob_cfg.grid
+    V3 = gspec.voxels_per_block
+    nb = gspec.max_blocks + 1
+    touched, acc, _, _ = segmented_block_reduce(
+        *reduce_lanes(glob_cfg, c), V3, nb,
+        max_bkey=gspec.num_submaps * gspec.blocks_per_submap, site="fusion")
+    row_ok = touched >= 0
+    slots = lookup_slots(gspec, global_state.table,
+                         torch.where(row_ok, touched,
+                                     torch.full_like(touched, -1))).long()
+    n_vals = acc.shape[1]
+    dense = torch.zeros((nb, n_vals, V3), dtype=torch.float32,
+                        device=acc.device)
+    # pad rows (zero sums) and blocks without a slot land in the garbage
+    # row, which the combine clears
+    dense.index_add_(0, slots, acc)
+    w_sum = dense[:, 0].reshape(-1)
+    wd_sum = dense[:, 1].reshape(-1)
+    occ_sum = dense[:, 2].reshape(-1).to(torch.int32)
+    if glob_cfg.texture_enabled:
+        wc_sum = dense[:, 3:6].permute(1, 0, 2).reshape(3, -1)
+    else:
+        wc_sum = torch.zeros((3, nb * V3), dtype=torch.float32,
+                             device=acc.device)
+    return w_sum, wd_sum, occ_sum, wc_sum
+
+
+def combine_accumulators(glob_cfg: TSDFConfig, global_state: GridState,
+                         w_sum, wd_sum, occ_sum, wc_sum) -> GridState:
+    """Closed-form weighted merge of dense sums into the global map, as
+    :func:`fuse_apply` merges (no Wmax clamp), over every slot. In place;
+    returns the state."""
+    gspec = glob_cfg.grid
+    nb = gspec.max_blocks + 1
+    V3 = gspec.voxels_per_block
+    ch = global_state.channels
+    w_sum = w_sum.reshape(nb, V3)
+    D = ch["TSDF"].float()
+    W = ch["W_TSDF"].float()
+    touched_v = w_sum > 0
+    new_W = W + w_sum
+    ch["TSDF"].copy_(torch.where(touched_v,
+                                 fma(D, W, wd_sum.reshape(nb, V3)) / new_W,
+                                 D))
+    ch["W_TSDF"].copy_(new_W)
+    ch["TSDF_observed"].copy_(torch.maximum(ch["TSDF_observed"],
+                                            touched_v.to(torch.int8)))
+    ch["occupy"].copy_(ch["occupy"].to(torch.int32) +
+                       occ_sum.reshape(nb, V3))
+    if glob_cfg.texture_enabled:
+        den = torch.clamp(new_W, min=1e-20)
+        col = ch["color"].float()                          # (nb, 3, V³)
+        wc = wc_sum.reshape(3, nb, V3).permute(1, 0, 2)
+        ch["color"].copy_(torch.where(touched_v[:, None, :],
+                                      fma(col, W[:, None, :], wc) /
+                                      den[:, None, :], col))
+    for v in ch.values():
+        v[-1] = 0
+    return global_state
+
+
 def fuse_submaps(sub_cfg: TSDFConfig, glob_cfg: TSDFConfig,
                  max_fuse_blocks: int, global_state: GridState,
                  sub_state: GridState, base_R, base_T,

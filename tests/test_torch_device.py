@@ -2,7 +2,8 @@
 
 Built with no device, DenseTSDF, DenseESDF, Octomap, SubmapMapping,
 DenseTSDF.loadMap, the state constructors (make_grid_state, make_tsdf_state,
-make_octomap_state) and the bridge's *_from_numpy functions target ``cuda``;
+make_octomap_state), the bridge's *_from_numpy functions and the parallel
+entry points (make_mesh, spawn_mesh, ShardedDenseTSDF) target ``cuda``;
 with no card they raise, naming the ``device="cpu"`` way out, and never fall
 back. Whether a card is present is decided inside each test
 (monkeypatched), never at import.
@@ -278,3 +279,55 @@ def test_node_entry_points_default_to_the_card(kind, monkeypatch, tmp_path):
     with pytest.raises(_Asked):
         _run_node_entry(kind, monkeypatch)
     assert [d.type for d in asked] == ["cuda"]
+
+
+# the parallel entry points ---------------------------------------------------
+
+PARALLEL = ["make_mesh", "spawn_mesh", "ShardedDenseTSDF"]
+
+
+def _build_parallel(kind, tmp_path, **kw):
+    """The device the entry point's mesh (or model) runs on."""
+    from taichislam_tpu_torch.models.sharded_dense_tsdf import \
+        ShardedDenseTSDF
+    from taichislam_tpu_torch.parallel import mesh
+    import torch_parallel_workers as workers
+    if kind == "make_mesh":
+        return mesh.make_mesh(1, "block", **kw).device
+    if kind == "spawn_mesh":
+        return torch.device(mesh.spawn_mesh(workers.mesh_device, 1,
+                                            store_dir=tmp_path, **kw)[0])
+    return ShardedDenseTSDF(map_scale=[3.2, 3.2], voxel_scale=0.1,
+                            max_blocks=15, max_submap_num=4, **kw).device
+
+
+@pytest.mark.parametrize("kind", PARALLEL)
+def test_parallel_entry_points_need_the_card_or_the_cpu(kind, monkeypatch,
+                                                        tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _build_parallel(kind, tmp_path)
+    assert _build_parallel(kind, tmp_path, device="cpu") == \
+        torch.device("cpu")
+
+
+@pytest.mark.parametrize("kind", PARALLEL)
+def test_parallel_entry_points_default_to_the_card(kind, monkeypatch,
+                                                   tmp_path):
+    """With a card present and no device given, the mesh, the spawned ranks
+    and the sharded model resolve ``cuda`` (and the NCCL backend) before
+    anything else."""
+    from taichislam_tpu_torch.models import sharded_dense_tsdf
+    from taichislam_tpu_torch.parallel import mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    asked = []
+
+    def spy(device=None):
+        asked.append(base_map.resolve_device(device))
+        raise _Asked
+    for mod in (mesh, sharded_dense_tsdf):
+        monkeypatch.setattr(mod, "resolve_device", spy)
+    with pytest.raises(_Asked):
+        _build_parallel(kind, tmp_path)
+    assert [d.type for d in asked] == ["cuda"]
+    assert mesh.default_backend(asked[0]) == "nccl"

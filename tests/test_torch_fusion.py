@@ -160,3 +160,39 @@ def test_splat_contributions_match_jax():
         np.testing.assert_allclose(np.asarray(getattr(want, k)),
                                    getattr(got, k).numpy(), rtol=0,
                                    atol=0, err_msg=k)
+
+
+@pytest.mark.parametrize("textured", [False, True])
+def test_dense_accumulators_match_jax(textured):
+    """The dense path the multi-drone fuse sums over ranks: the touched
+    table bitmap, allocation from it, the per-voxel sums (K1 in the port,
+    XLA scatters in JAX, both in lane order per voxel) and the closed-form
+    merge (jitted, as the JAX fuse runs it)."""
+    from taichislam_tpu.core.grid import allocate_from_touched as j_alloc
+    from taichislam_tpu_torch.core.grid import allocate_from_touched
+    js_sub = _submap_state(8, textured)
+    jsub, tsub, jglob, tglob = _configs(8, textured)
+    bR, bT = _bases()
+    jc = jax.jit(jf.splat_contributions, static_argnums=(0, 1, 2))(
+        jsub, jglob, 96, js_sub, jnp.asarray(bR), jnp.asarray(bT))
+    tc = tf.splat_contributions(tsub, tglob, 96, bridge.grid_state_from_numpy(
+        js_sub, device="cpu"), torch.from_numpy(bR), torch.from_numpy(bT))
+    jg = jt.make_tsdf_state(jglob)
+    tg = bridge.grid_state_from_numpy(jg, device="cpu")
+    jtouched = jf.accumulate_dense(jglob, jg, jc)
+    ttouched = tf.accumulate_dense(tglob, tg, tc)
+    np.testing.assert_array_equal(np.asarray(jtouched), ttouched.numpy())
+    jg = j_alloc(jglob.grid, jg, jtouched, jnp.int32(0))
+    tg = allocate_from_touched(tglob.grid, tg, ttouched, 0)
+    want = jf.scatter_accumulators(jglob, jg, jc)
+    got = tf.scatter_accumulators(tglob, tg, tc)
+    for k, w, g in zip(("w", "wd", "occ", "wc"), want, got):
+        assert g.dtype == (torch.int32 if k == "occ" else torch.float32)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=1e-6, err_msg=k)
+    assert float(got[0].sum()) > 0
+    jg = jax.jit(jf.combine_accumulators, static_argnums=0)(jglob, jg, *want)
+    tg = tf.combine_accumulators(tglob, tg, *got)
+    no_stats = dict.fromkeys(("fuse_sources", "fuse_dropped",
+                              "fuse_tiles_dropped"), 0)
+    _check(jg, no_stats, bridge.grid_state_to_numpy(tg), no_stats)

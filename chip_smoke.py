@@ -91,6 +91,8 @@ Phases:
      process (wall s);
  18. recast_depth_sequence on the bench-sized map against the per-frame
      loop (DenseTSDF, DenseESDF at 6 and 32 sweeps, SubmapMapping), exact;
+     and the sequences' graph path (one CUDA graph replay per frame)
+     against the same windows through the eager *_ref loop, bit for bit;
  19. ShardedDenseTSDF at its own defaults (10 x 10 m, 5 cm, V = 16, 8192
      slots, f32, ESDF 8 sweeps and cap 512) over phase 3's frames: on a
      one-rank NCCL mesh, its ESDF equal after every frame to a
@@ -108,7 +110,22 @@ Phases:
      through the single-device ops, the fused map against fuse_submaps (ms
      per step and per fuse, the fuse's collective bytes). The ranks' launch
      counts add into the kernels line; the kernels are built once, in
-     phase 1, before any rank starts.
+     phase 1, before any rank starts;
+ 21. config 3 of tools/bench_configs.py at full size (10 x 10 m at 5 cm,
+     V = 16, 4096 blocks, max ray 5.1 m, ESDF 8 sweeps, slack 0.5, eps
+     2e-3) over 40 orbit frames (640x480) staged on the card once: the
+     per-call deferred path (esdf_check_interval 8, capacity interval 8;
+     one graph replay a frame) and the windowed path (W = 20), each in two
+     passes, against the same frames through the eager *_ref loop on the
+     card, bit for bit after every frame or window; the second pass timed
+     (CUDA events) for both; graph captures and replays; K1 / K2 / K3
+     launches per frame; the CUDA kernels of one frame and the idle share
+     of one verdict interval (torch.profiler); no capacity drop in the
+     timed pass; interval 8 against interval 1 drained, ESDF within 5e-3
+     at tests/test_esdf.py:384's settings (raise slack 0, seed eps 0) and
+     reported at config 3's own;
+     the first 8 per-call frames against the CPU plain path (tables,
+     observed and fixed flags exact, TSDF and ESDF within 4e-3).
 
 Exits non-zero without a result when no CUDA device is present. The last
 line is {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -116,6 +133,7 @@ line is {"ok": true, "device": {...}}; the line before it lists the kernels.
 Usage: python3 chip_smoke.py
 """
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -2044,7 +2062,8 @@ def sequence_phase(dev, frames, texs, n=6, n_sub=9):
     """Phase 18: recast_depth_sequence on the bench-sized map against the
     port's own per-frame loop under the JAX semantics (the ESDF window's
     budget is min(max_esdf_sweeps, 6)), with the same bin bucket and ESDF
-    block cap on both sides."""
+    block cap on both sides; and the sequences' graph path against the
+    same windows through their eager *_ref loop, bit for bit."""
     import torch
     from taichislam_tpu_torch.models.dense_esdf import DenseESDF
     from taichislam_tpu_torch.models.dense_tsdf import DenseTSDF
@@ -2094,6 +2113,11 @@ def sequence_phase(dev, frames, texs, n=6, n_sub=9):
     out = []
     seq = build(DenseTSDF, **tsdf_kw)
     seq.recast_depth_sequence(Rs[:n], Ts[:n], depth[:n], texs[:n])
+    eag = build(DenseTSDF, **tsdf_kw)
+    with eager_sequences():
+        eag.recast_depth_sequence(Rs[:n], Ts[:n], depth[:n], texs[:n])
+    maps_bit_equal(seq, eag, "DenseTSDF graph vs eager")
+    del eag
     ref = build(DenseTSDF, **tsdf_kw)
     for f in range(n):
         ref.recast_depth_to_map(Rs[f], Ts[f], depth[f], texs[f])
@@ -2104,6 +2128,11 @@ def sequence_phase(dev, frames, texs, n=6, n_sub=9):
     for sweeps in (6, 32):
         seq = build(DenseESDF, **dict(esdf_kw, max_esdf_sweeps=sweeps))
         seq.recast_depth_sequence(Rs[:n], Ts[:n], depth[:n], texs[:n])
+        eag = build(DenseESDF, **dict(esdf_kw, max_esdf_sweeps=sweeps))
+        with eager_sequences():
+            eag.recast_depth_sequence(Rs[:n], Ts[:n], depth[:n], texs[:n])
+        maps_bit_equal(seq, eag, f"DenseESDF {sweeps} graph vs eager")
+        del eag
         ref = build(DenseESDF, **dict(esdf_kw, max_esdf_sweeps=6))
         for f in range(n):
             ref.recast_depth_to_map(Rs[f], Ts[f], depth[f], texs[f])
@@ -2122,8 +2151,15 @@ def sequence_phase(dev, frames, texs, n=6, n_sub=9):
         return sm
     calls = [(f, True, (Rs[f], Ts[f]), EXT, depth[f], texs[f])
              for f in range(n_sub)]
-    seq, ref = build_sm(), build_sm()
+    seq, ref, eag = build_sm(), build_sm(), build_sm()
     seq.recast_depth_sequence(calls)
+    with eager_sequences():
+        eag.recast_depth_sequence(calls)
+    maps_bit_equal(seq.submap_collection, eag.submap_collection,
+                   "SubmapMapping collection graph vs eager")
+    maps_bit_equal(seq.global_map, eag.global_map,
+                   "SubmapMapping global graph vs eager")
+    del eag
     for c in calls:
         ref.recast_depth_to_map_by_frame(*c)
     require(seq.submaps == ref.submaps and
@@ -2136,7 +2172,423 @@ def sequence_phase(dev, frames, texs, n=6, n_sub=9):
     log(f"[phase18] sequences on the card against the per-frame loop "
         f"({n} frames; SubmapMapping {n_sub} frames, keyframe_step 4, "
         f"submaps {sorted(seq.submaps)}): tables and flags exact; max abs "
-        + "; ".join(f"{k} {v}" for k, v in out))
+        + "; ".join(f"{k} {v}" for k, v in out) + "; the graph path equal "
+        "to the eager *_ref loop on the same windows bit for bit (DenseTSDF, "
+        "DenseESDF at 6 and 32 sweeps, SubmapMapping collection and global)")
+
+
+# ---------------------------------------------------------------------------
+# phase 21: config 3 of the JAX package's benchmark, full size
+# ---------------------------------------------------------------------------
+
+# tools/bench_configs.py:119-121 (the map) and :245-276 (config 3: the
+# per-call deferred path and the windowed one)
+C3_MAP = dict(map_scale=[10.0, 10.0], voxel_scale=0.05, max_ray_length=5.1,
+              min_ray_length=0.3, max_blocks=4096, num_voxel_per_blk_axis=16,
+              max_bins=32768, max_submap_num=8, max_esdf_sweeps=8,
+              esdf_raise_slack_voxels=0.5)
+C3_FRAMES = 40
+C3_WINDOW = 20
+C3_INTERVAL = 8
+C3_CPU_FRAMES = 8
+
+
+@contextlib.contextmanager
+def eager_sequences():
+    """Run the sequences through their eager ``*_ref`` loop instead of the
+    graph path (the models call the module's functions by name)."""
+    from taichislam_tpu_torch.ops import sequence as seq
+    saved = seq.integrate_depth_sequence, seq.integrate_esdf_sequence
+    seq.integrate_depth_sequence = seq.integrate_depth_sequence_ref
+    seq.integrate_esdf_sequence = seq.integrate_esdf_sequence_ref
+    try:
+        yield
+    finally:
+        seq.integrate_depth_sequence, seq.integrate_esdf_sequence = saved
+
+
+def c3_model(dev, K, interval):
+    """Config 3's DenseESDF as tools/bench_configs.py builds it: the
+    per-call row (check interval 8, capacity interval 8) or, at interval
+    1, the windowed row's model."""
+    from taichislam_tpu_torch.models.dense_esdf import DenseESDF
+    m = DenseESDF(**C3_MAP, esdf_check_interval=interval, device=dev)
+    m.cfg = dataclasses.replace(m.cfg, esdf_converge_eps=2e-3)
+    if interval > 1:
+        m.capacity_check_interval = C3_INTERVAL
+    m.set_dep_camera_intrinsic(K)
+    return m
+
+
+def record_verdicts(m, out):
+    """Record each deferred verdict's accumulated maxima [bins_total,
+    dropped, live_lanes, esdf_overflow] with the bin and ESDF-cap buckets
+    they were taken under."""
+    verdict = m._frame_verdict
+
+    def recorded():
+        out.append((m._frame_pack.tolist(), m._bin_bucket,
+                    m._esdf_cap_bucket))
+        verdict()
+    m._frame_verdict = recorded
+
+
+def bits(t):
+    """A float tensor as its bit pattern, for bit-for-bit comparisons."""
+    import torch
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    if t.dtype == torch.float16:
+        return t.view(torch.int16)
+    return t
+
+
+def maps_bit_equal(a, b, tag):
+    """Two port maps bit for bit: the state and, on a DenseESDF, the ESDF
+    arrays and the interval accumulators; the buckets and the last
+    stats."""
+    import torch
+
+    def same(x, y, what):
+        require((x is None) == (y is None) and (
+            x is None or torch.equal(bits(x), bits(y))), f"{tag}: {what}")
+    for m in (a, b):
+        if hasattr(m, "_refresh_esdf_observed"):
+            m._refresh_esdf_observed()   # the exports' view of the mask
+    for f in a.state._fields:
+        if f != "channels":
+            same(getattr(a.state, f), getattr(b.state, f), f)
+    for k in a.state.channels:
+        same(a.state.channels[k], b.state.channels[k], k)
+    for n in ("esdf", "esdf_fixed", "esdf_observed", "_esdf_pending",
+              "_esdf_seen_tsdf", "_esdf_seen_obs", "_frame_pack",
+              "_frame_union"):
+        same(getattr(a, n, None), getattr(b, n, None), n)
+    require(set(a.last_stats) == set(b.last_stats), f"{tag}: stats keys")
+    for k in a.last_stats:
+        same(a.last_stats[k], b.last_stats[k], f"stats {k}")
+    for n in ("_bin_bucket", "_esdf_cap_bucket", "_esdf_frame",
+              "_touched_bucket"):
+        require(getattr(a, n, None) == getattr(b, n, None), f"{tag}: {n}")
+
+
+def c3_pass(m, frames, n, window=None):
+    """One pass of ``n`` frames through the per-call path or, with
+    ``window``, through recast_depth_sequence; returns (event ms, wall
+    ms) per frame."""
+    import torch
+    depth, Rs, Ts = frames
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    if window is None:
+        for f in range(n):
+            m.recast_depth_to_map(Rs[f], Ts[f], depth[f], None)
+    else:
+        for f in range(0, n, window):
+            m.recast_depth_sequence(Rs[f:f + window], Ts[f:f + window],
+                                    depth[f:f + window])
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n, 1000 * (time.perf_counter() - t0) / n
+
+
+def c3_host_copy(m):
+    """What the card-vs-CPU comparison reads, on the host."""
+    m._refresh_esdf_observed()
+    st = m.state
+    out = {f: getattr(st, f).cpu() for f in ("table", "block_coords",
+                                             "num_blocks")}
+    out.update({k: st.channels[k].cpu() for k in st.channels})
+    out.update(esdf=m.esdf.cpu(), fixed=m.esdf_fixed.cpu(),
+               observed=m.esdf_observed.cpu())
+    return out
+
+
+def drain(m, rounds=200):
+    """Run updates with an empty touched set until the wavefront queue is
+    empty (tests/test_esdf.py's drain); returns the rounds taken."""
+    import torch
+    m.last_stats = dict(m.last_stats)
+    m.last_stats["touched_blocks"] = torch.zeros(
+        (m.cfg.max_blocks + 1,), dtype=torch.bool, device=m.device)
+    for r in range(rounds):
+        if not bool(m._esdf_pending.any()):
+            return r
+        m.update_esdf()
+    raise AssertionError("ESDF wavefront queue never drained")
+
+
+def c3_interval_run(dev, frames, K, floor, cap, exact):
+    """Config 3 at check interval 8 and at 1 over the same frames, both
+    drained; with ``exact`` at tests/test_esdf.py:384's settings (raise
+    slack 0, seed eps 0, convergence eps 1e-4). The bin buckets are held at
+    the settled ``floor``, so both integrate the same TSDF. Returns (ESDF
+    max abs on the common observed voxels, their count, TSDF max abs,
+    drain rounds of each)."""
+    import torch
+    depth, Rs, Ts = frames
+    models = []
+    for interval in (C3_INTERVAL, 1):
+        m = c3_model(dev, K, interval)
+        if exact:
+            m.cfg = dataclasses.replace(m.cfg, esdf_raise_slack_voxels=0.0,
+                                        esdf_seed_eps_voxels=0.0,
+                                        esdf_converge_eps=1e-4)
+        hold_bins(m, floor)
+        if interval > 1:
+            hold_frame_bins(m, floor)
+            m._esdf_cap_bucket = cap
+        for f in range(len(depth)):
+            m.recast_depth_to_map(Rs[f], Ts[f], depth[f], None)
+        models.append((m, drain(m)))
+    (m8, r8), (m1, r1) = models
+    for m in (m8, m1):
+        m._refresh_esdf_observed()
+    e_tsdf = float((m8.state.channels["TSDF"] -
+                    m1.state.channels["TSDF"]).abs().max())
+    require(torch.equal(m8.state.table, m1.state.table),
+            "interval 8 vs 1: block tables")
+    require(torch.equal(m8.esdf_observed, m1.esdf_observed),
+            "interval 8 vs 1: observed voxels")
+    obs = m8.esdf_observed
+    err = float((m8.esdf - m1.esdf)[obs].abs().max())
+    return err, int(obs.sum()), e_tsdf, (r8, r1)
+
+
+def c3_interval_phase(dev, frames, K, floor, cap):
+    """Interval 8 against interval 1, both drained: within 5e-3 at
+    tests/test_esdf.py:384's exactness settings (its bound); at config 3's
+    own 0.5-voxel raise slack the drained field depends on the path taken,
+    and the difference is reported."""
+    err, n_obs, e_tsdf, rounds = c3_interval_run(dev, frames, K, floor, cap,
+                                                 exact=True)
+    require(err < 5e-3, f"interval 8 vs 1 drained ESDF max abs {err}")
+    err_c3, _, _, rounds_c3 = c3_interval_run(dev, frames, K, floor, cap,
+                                              exact=False)
+    log(f"[phase21] interval {C3_INTERVAL} vs 1 over {len(frames[0])} "
+        f"frames, drained ({rounds[0]} and {rounds[1]} updates) at "
+        f"tests/test_esdf.py:384's settings (slack 0, seed eps 0, eps "
+        f"1e-4): {n_obs} observed voxels, ESDF max abs {err} (< 5e-3), TSDF "
+        f"max abs {e_tsdf}; at config 3's slack 0.5 / eps 2e-3 ({rounds_c3} "
+        f"updates) ESDF max abs {err_c3} (reported, not held: a raise "
+        f"inside the slack is not propagated, so the drained field depends "
+        f"on the path)")
+
+
+def c3_cpu_phase(dev, frames, K, snap):
+    """The first C3_CPU_FRAMES frames of the per-call path on the CPU
+    against the card's snapshot after the same frames."""
+    import torch
+    cpu = torch.device("cpu")
+    depth, Rs, Ts = frames
+    m = c3_model(cpu, K, C3_INTERVAL)
+    for f in range(C3_CPU_FRAMES):
+        m.recast_depth_to_map(Rs[f], Ts[f], depth[f].cpu(), None)
+    c = c3_host_copy(m)
+    for k in ("table", "block_coords", "num_blocks", "TSDF_observed",
+              "fixed", "observed"):
+        require(torch.equal(snap[k], c[k]), f"config 3 card vs CPU: {k}")
+    errs = {k: float((snap[k].float() - c[k].float()).abs().max())
+            for k in ("TSDF", "W_TSDF")}
+    errs["ESDF"] = float((snap["esdf"] - c["esdf"])[c["observed"]].abs()
+                         .max())
+    require(max(errs["TSDF"], errs["ESDF"]) <= 4e-3,
+            f"config 3 card vs CPU {errs}")
+    log(f"[phase21] card vs CPU over {C3_CPU_FRAMES} per-call frames: "
+        f"tables, observed and fixed flags exact; max abs {errs}")
+
+
+def c3_profile(m, frames, n):
+    """torch.profiler over ``n`` per-call frames of ``m`` (graph
+    replays): CUDA kernels per frame, by name, and the idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    depth, Rs, Ts = frames
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for f in range(n):
+            m.recast_depth_to_map(Rs[f], Ts[f], depth[f], None)
+        torch.cuda.synchronize()
+    wall = 1000 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in kernels) / 1000.0
+    by_name, dev_ms = {}, {}
+    for e in kernels:
+        k = kernel_name(e.name).split("<")[0]
+        by_name[k] = by_name.get(k, 0) + 1
+        dev_ms[k] = dev_ms.get(k, 0.0) + e.device_time_total / 1000.0 / n
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "c3_profile.txt").write_text(prof.key_averages().table(
+        sort_by="cuda_time_total", row_limit=60))
+    top = dict(sorted(((k, round(v, 4)) for k, v in dev_ms.items()),
+                      key=lambda x: -x[1])[:8])
+    return len(kernels) / n, busy / n, wall / n, by_name, top
+
+
+def hold_frame_bins(m, floor):
+    """Hold the ray-bin bucket a deferred verdict leaves at or above
+    ``floor`` (hold_bins for the deferred per-frame path)."""
+    verdict = m._frame_verdict
+
+    def held():
+        verdict()
+        m._bin_bucket = max(m._bin_bucket, floor)
+    m._frame_verdict = held
+    m._bin_bucket = max(m._bin_bucket, floor)
+
+
+def c3_phase(dev, smi, launches):
+    """Phase 21: config 3 at full size, 640x480 orbit frames staged on the
+    card once. The per-call deferred path (interval 8, capacity interval
+    8) and the windowed path (W = 20) through the graph path, each against
+    the same frames through the eager *_ref loop on the card, bit for bit
+    after every frame or window. Pass 1 settles the buckets as the JAX
+    package's follow-the-load rule moves them; from pass 2 on the bin
+    bucket is held at the largest that pass 1 chose (as phases 6, 8 and 18
+    hold theirs), and passes 2-3 must drop nothing; pass 3 is timed."""
+    import torch
+    from taichislam_tpu_torch.ops import sequence as seq
+    from taichislam_tpu_torch.utils.synthetic_scene import orbit_sequence
+    t0 = time.perf_counter()
+    depth_np, Rs, Ts, K = orbit_sequence(n_frames=C3_FRAMES)
+    depth = [torch.from_numpy(d.astype(np.int32)).to(dev) for d in depth_np]
+    frames = (depth, Rs, Ts)
+    log(f"[phase21] rendered and staged {C3_FRAMES} 640x480 frames in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # per-call deferred path: graph and eager in lockstep in passes 1-2,
+    # every frame compared; pass 3 timed for each alone
+    seq.graph_cache.reset_counts()
+    g, e = c3_model(dev, K, C3_INTERVAL), c3_model(dev, K, C3_INTERVAL)
+    verdicts = []
+    record_verdicts(g, verdicts)
+    snap = None
+    for p in (1, 2):
+        for f in range(C3_FRAMES):
+            g.recast_depth_to_map(Rs[f], Ts[f], depth[f], None)
+            with eager_sequences():
+                e.recast_depth_to_map(Rs[f], Ts[f], depth[f], None)
+            maps_bit_equal(g, e, f"per-call pass {p} frame {f}")
+            if p == 1 and f == C3_CPU_FRAMES - 1:
+                snap = c3_host_copy(g)
+        if p == 1:
+            settling, n1 = list(verdicts), len(verdicts)
+            floor = max(b for _, b, _ in settling)
+            for m in (g, e):
+                hold_frame_bins(m, floor)
+            caps = [seq.graph_cache.captures]
+            cap_ms = [seq.graph_cache.capture_ms]
+    caps.append(seq.graph_cache.captures - caps[0])
+    cap_ms.append(seq.graph_cache.capture_ms - cap_ms[0])
+    log(f"[phase21] per-call passes 1-2 (graph and eager in lockstep): "
+        f"graph == eager bit for bit after each of {2 * C3_FRAMES} frames "
+        f"(tables, flags, TSDF, W, ESDF, fixed, pending, stats, "
+        f"accumulators, buckets); graph captures {caps[0]} in pass 1 "
+        f"({cap_ms[0]:.1f} ms, warm-up included) and {caps[1]} in pass 2 "
+        f"({cap_ms[1]:.1f} ms); pass 1's verdicts [bins_total, dropped, "
+        f"live_lanes, esdf_overflow], bin bucket, ESDF cap: {settling}; bin "
+        f"bucket held at {floor} from pass 2")
+    counters = reset_counts()
+    seq.graph_cache.reset_counts()
+    n2 = len(verdicts)
+    ms_g, wall_g = c3_pass(g, frames, C3_FRAMES)
+    got, sites = read_counts(counters, launches)
+    caps3, reps = seq.graph_cache.captures, seq.graph_cache.replays
+    with eager_sequences():
+        counters_e = reset_counts()
+        ms_e, wall_e = c3_pass(e, frames, C3_FRAMES)
+        got_e, _ = read_counts(counters_e, {"K1": 0, "K2": 0, "K3": 0})
+    maps_bit_equal(g, e, "per-call pass 3")
+    for pack, bucket, ecap in verdicts[n1:]:
+        bins_total, dropped, _, ov = pack
+        require(dropped == 0 and ov == 0 and bins_total <= bucket,
+                f"capacity drop after settling: {pack} under bin bucket "
+                f"{bucket}, ESDF cap {ecap}")
+    require(got["K1"] > 0 and got["K3"] > 0, "phase 21: K1 / K3 launches")
+    require(reps == C3_FRAMES, f"phase 21: {reps} replays")
+    log(f"[phase21] per-call pass 3: graph {ms_g:.3f} ms/frame (events; "
+        f"wall {wall_g:.3f}), eager *_ref on the card {ms_e:.3f} ms/frame "
+        f"(wall {wall_e:.3f}) ({smi}); graph == eager bit for bit; "
+        f"captures {caps3}, replays {reps}; launches per frame graph K1 "
+        f"{got['K1'] / C3_FRAMES:.2f} K2 {got['K2'] / C3_FRAMES:.2f} K3 "
+        f"{got['K3'] / C3_FRAMES:.2f} (K1 by site {sites}), eager K1 "
+        f"{got_e['K1'] / C3_FRAMES:.2f} K3 {got_e['K3'] / C3_FRAMES:.2f}; "
+        f"passes 2-3 verdicts {verdicts[n1:n2]} / {verdicts[n2:]} (no "
+        f"drop); buckets bins {g._bin_bucket} touched "
+        f"{getattr(g, '_touched_bucket', None)} ESDF cap "
+        f"{g._esdf_cap_bucket}")
+    cap = g._esdf_cap_bucket
+    del e
+
+    # one frame's kernels, then the idle share of one verdict interval
+    k_one, busy1, _, names, _ = c3_profile(g, frames, 1)
+    log(f"[phase21] one per-call frame under torch.profiler: {k_one:.0f} "
+        f"CUDA kernels (device busy {busy1:.3f} ms): "
+        f"{dict(sorted(names.items(), key=lambda x: -x[1]))}")
+    k_n, busy, wall, _, top = c3_profile(g, frames, C3_INTERVAL)
+    log(f"[phase21] profiled {C3_INTERVAL} per-call frames (one verdict "
+        f"interval): {k_n:.0f} CUDA kernels per frame, device busy "
+        f"{busy:.3f} ms per frame: idle share {1 - busy / ms_g:.3f} of "
+        f"pass 3's unprofiled {ms_g:.3f} ms/frame, {1 - busy / wall:.3f} "
+        f"of the {wall:.3f} ms/frame under the profiler; device ms per "
+        f"frame by kernel, largest first: {top} ({smi})")
+    del g
+    seq.graph_cache.clear()
+
+    # windowed path, W = 20: passes 1-2 in lockstep, pass 3 timed
+    gw, ew = c3_model(dev, K, 1), c3_model(dev, K, 1)
+    seq.graph_cache.reset_counts()
+    buckets, floor_w = [], None
+    for p in (1, 2):
+        for f in range(0, C3_FRAMES, C3_WINDOW):
+            sl = slice(f, f + C3_WINDOW)
+            gw.recast_depth_sequence(Rs[sl], Ts[sl], depth[sl])
+            with eager_sequences():
+                ew.recast_depth_sequence(Rs[sl], Ts[sl], depth[sl])
+            maps_bit_equal(gw, ew, f"windowed pass {p} window at frame {f}")
+            buckets.append(gw._bin_bucket)
+            if floor_w is not None:
+                require(int(gw.last_stats["max_dropped"]) == 0 and
+                        int(gw.last_stats["max_bins_total"]) <= floor_w,
+                        f"windowed drop after settling: {gw.last_stats}")
+        if p == 1:
+            floor_w = max(buckets)
+            for m in (gw, ew):
+                hold_seq_bins(m, floor_w)
+    cap_w = seq.graph_cache.captures
+    seq.graph_cache.reset_counts()
+    counters = reset_counts()
+    msw_g, wallw_g = c3_pass(gw, frames, C3_FRAMES, window=C3_WINDOW)
+    got_w, _ = read_counts(counters, launches)
+    caps_w, reps_w = seq.graph_cache.captures, seq.graph_cache.replays
+    with eager_sequences():
+        msw_e, wallw_e = c3_pass(ew, frames, C3_FRAMES, window=C3_WINDOW)
+    maps_bit_equal(gw, ew, "windowed pass 3")
+    require(int(gw.last_stats["max_dropped"]) == 0 and
+            int(gw.last_stats["max_bins_total"]) <= floor_w,
+            "windowed drops in the timed pass")
+    log(f"[phase21] windowed W = {C3_WINDOW}, pass 3: graph {msw_g:.3f} "
+        f"ms/frame (wall {wallw_g:.3f}), eager *_ref {msw_e:.3f} ms/frame "
+        f"(wall {wallw_e:.3f}) ({smi}); graph == eager bit for bit after "
+        f"each window of passes 1-2 and after pass 3; captures {cap_w} in "
+        f"passes 1-2, {caps_w} in pass 3, replays {reps_w}; bin buckets "
+        f"{buckets} (held at {floor_w} from pass 2); launches per frame K1 "
+        f"{got_w['K1'] / C3_FRAMES:.2f} K2 {got_w['K2'] / C3_FRAMES:.2f} "
+        f"K3 {got_w['K3'] / C3_FRAMES:.2f}")
+    del gw, ew
+    seq.graph_cache.clear()
+    torch.cuda.empty_cache()
+
+    c3_interval_phase(dev, frames, K, floor, cap)
+    seq.graph_cache.clear()
+    c3_cpu_phase(dev, frames, K, snap)
+    log(f"[phase21] took {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -2882,6 +3334,9 @@ def main():
     sharded_phase(dev, smi, (depth, Rs, Ts, K), cfg, launches)
     drones_phase(dev, smi, sub_frames, launches)
     log(f"[phase20] phases 19-20 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 21 --------------------------------------------------------
+    c3_phase(dev, smi, launches)
 
     src = "taichislam_tpu_torch/csrc/"
     table = [("seg_accum (K1)", "K1", src + "seg_accum.cu",

@@ -6,8 +6,10 @@ bounded block-coordinate space (-1 = unallocated), channels of shape
 allocation as an exclusive prefix sum (deterministic, no atomics).
 
 Unlike the JAX functions, which return new arrays, the allocation and
-scatter functions here update the state's tensors IN PLACE and return the
-state (tuples of tensors are cheap to rebuild; the channels are not).
+scatter functions here update the state's tensors IN PLACE, the 0-d
+counters included, and return the state: every tensor of a state keeps its
+address for the state's life, which a captured CUDA graph needs
+(``ops/sequence.py``).
 """
 
 from __future__ import annotations
@@ -139,7 +141,7 @@ def allocate_blocks(spec: GridSpec, state: GridState, cand_blin: torch.Tensor,
     rel = torch.where(bad, torch.full_like(rel, bps), rel)
     touched = torch.zeros((bps + 1,), dtype=torch.bool,
                           device=cand_blin.device)
-    touched[rel.long()] = True
+    touched.index_fill_(0, rel.long(), True)
     return allocate_from_touched(spec, state, touched[:bps], lo)
 
 
@@ -163,28 +165,48 @@ def allocate_from_touched(spec: GridSpec, state: GridState,
     lin_ids = lo + torch.arange(bps, dtype=torch.int32,
                                 device=touched.device)
     state.block_coords[tgt] = block_lin_to_coords(spec, lin_ids)
-    state.block_active[tgt] = True
-    state.block_coords[garbage] = -1
-    state.block_active[garbage] = False
+    state.block_active.index_fill_(0, tgt, True)
+    state.block_coords[garbage].fill_(-1)
+    state.block_active[garbage].fill_(False)
 
     n_new = new_mask.sum(dtype=torch.int32)
     n_fit = torch.clamp(torch.minimum(n_new, spec.max_blocks -
                                       state.num_blocks), min=0)
-    return state._replace(num_blocks=state.num_blocks + n_fit,
-                          alloc_overflow=state.alloc_overflow +
-                          (n_new - n_fit))
+    state.alloc_overflow.add_(n_new - n_fit)
+    state.num_blocks.add_(n_fit)
+    return state
 
 
 def reset_grid(state: GridState) -> GridState:
-    """Deallocate every block and zero the channels, in place."""
+    """Deallocate every block and zero the channels and counters, in
+    place."""
     state.table.fill_(-1)
     state.block_coords.fill_(-1)
     state.block_active.fill_(False)
     for v in state.channels.values():
         v.zero_()
-    return state._replace(num_blocks=torch.zeros_like(state.num_blocks),
-                          alloc_overflow=torch.zeros_like(
-                              state.alloc_overflow))
+    state.num_blocks.zero_()
+    state.alloc_overflow.zero_()
+    return state
+
+
+def clone_state(state: GridState) -> GridState:
+    """A copy of ``state`` that shares no tensor with it."""
+    return state._replace(
+        channels={k: v.clone() for k, v in state.channels.items()},
+        **{f: getattr(state, f).clone() for f in state._fields
+           if f != "channels"})
+
+
+def copy_state_(dst: GridState, src: GridState) -> GridState:
+    """Write ``src``'s values into ``dst``'s tensors, in place (their
+    addresses stay); returns ``dst``."""
+    for f in dst._fields:
+        if f != "channels":
+            getattr(dst, f).copy_(getattr(src, f))
+    for k, v in dst.channels.items():
+        v.copy_(src.channels[k])
+    return dst
 
 
 def channel_flat(channel: torch.Tensor) -> torch.Tensor:

@@ -29,7 +29,14 @@ class BaseMap:
         self.colormap = jet_lut_np()
 
     def _tensor(self, a, dtype=None):
-        """``a`` as a tensor on the map's ``device``."""
+        """``a`` as a tensor on the map's ``device``: host arrays are
+        copied there; a torch tensor (on any device) moves there and takes
+        ``dtype`` with ``Tensor.to``, which copies nothing when it is
+        already there, so frames staged on the card stay on the card."""
+        if isinstance(a, torch.Tensor):
+            tdt = None if dtype is None else \
+                torch.from_numpy(np.empty(0, dtype)).dtype
+            return a.to(device=self.device, dtype=tdt)
         return torch.as_tensor(np.asarray(a, dtype=dtype), device=self.device)
 
     # -- camera ------------------------------------------------------------

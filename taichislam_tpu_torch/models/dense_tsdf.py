@@ -9,10 +9,14 @@ JAX package's), the compact submap gather of the voxgraph wire
 (``export_submap_async`` / ``finish_export_submap``), remote submaps in
 descending slots, submap fusion (``fuse_submaps``,
 ``fuse_submaps_incremental``), ``reset``, the ``init_sphere`` fixture and
-the multi-frame ingest ``recast_depth_sequence`` (the JAX sequence's
-semantics as a loop of per-frame integrations).
+the multi-frame ingest ``recast_depth_sequence`` (``ops/sequence.py``:
+one CUDA graph replay per frame on the card). ``capacity_check_interval``
+(an attribute, default 1) reads the bin load every that many frames, as in
+the JAX package.
 The map state lives on ``device``: the CUDA card unless the caller passes
-another (``device="cpu"``); with no card and no device it raises.
+another (``device="cpu"``); with no card and no device it raises. Its
+tensors keep their addresses for the map's life (every op writes them in
+place), so the sequences' captured graphs stay valid.
 """
 
 from __future__ import annotations
@@ -24,10 +28,11 @@ import numpy as np
 import torch
 
 from taichislam_tpu_torch.core.config import TSDFConfig
-from taichislam_tpu_torch.core.grid import reset_grid
+from taichislam_tpu_torch.core.grid import clone_state, copy_state_, reset_grid
 from taichislam_tpu_torch.models.base_map import BaseMap, resolve_device
 from taichislam_tpu_torch.ops import exports as exports_ops
 from taichislam_tpu_torch.ops import fusion as fusion_ops
+from taichislam_tpu_torch.ops import sequence as seq_ops
 from taichislam_tpu_torch.ops import tsdf as tsdf_ops
 
 
@@ -55,15 +60,6 @@ def host_export(arrays, kept, fills):
         h[:kept] = a[:kept].cpu().numpy()
         out.append(h)
     return out
-
-
-def clone_state(state):
-    """A copy of a GridState whose tensors share nothing with ``state``
-    (the per-frame ops write the state in place)."""
-    return state._replace(
-        channels={k: v.clone() for k, v in state.channels.items()},
-        **{f: getattr(state, f).clone() for f in state._fields
-           if f != "channels"})
 
 
 class DenseTSDF(BaseMap):
@@ -117,8 +113,12 @@ class DenseTSDF(BaseMap):
 
         self.state = tsdf_ops.make_tsdf_state(self.cfg, device=self.device)
         self.initialize_submap_fields(max_submap_num)
-        # adaptive ray-bin capacity: the lattice scales with the bucket
+        # adaptive ray-bin capacity: the lattice scales with the bucket,
+        # read every capacity_check_interval frames (an under-sized bucket
+        # drops bins until the next check)
         self._bin_bucket = min(4096, self.cfg.max_bins)
+        self.capacity_check_interval = 1
+        self._cap_frame = -1
         self.last_stats = {}
         # mesh-dirty protocol (models/mesher.py): the device union of the
         # touched-block bitmaps since the mesher last consumed them; the
@@ -135,7 +135,8 @@ class DenseTSDF(BaseMap):
     def _mark_mesh_dirty(self, touched):
         if self._mesh_dirty_full or touched is None:
             return
-        self._mesh_dirty = touched if self._mesh_dirty is None \
+        # a copy: ``touched`` may be a buffer its producer writes again
+        self._mesh_dirty = touched.clone() if self._mesh_dirty is None \
             else (self._mesh_dirty | touched)
 
     def _mark_mesh_dirty_full(self):
@@ -166,7 +167,11 @@ class DenseTSDF(BaseMap):
         return dataclasses.replace(self.cfg, max_bins=self._bin_bucket)
 
     def _update_bin_bucket(self, stats):
-        """Adapt the bin bucket to the observed load (one host read)."""
+        """Adapt the bin bucket to the observed load: one host read every
+        ``capacity_check_interval`` frames (the first frame included)."""
+        self._cap_frame += 1
+        if self._cap_frame % self.capacity_check_interval:
+            return
         pack = torch.stack([stats["num_bins"], stats["bins_dropped"]]).cpu()
         n = int(pack[0]) + int(pack[1])
         self._bin_bucket = min(bin_bucket_for(n), self.cfg.max_bins)
@@ -280,13 +285,15 @@ class DenseTSDF(BaseMap):
     # -- multi-frame ingest ---------------------------------------------------
     def recast_depth_sequence(self, Rs, Ts, depthmaps, textures=None):
         """Fuse a window of depth frames (world poses ``Rs``, ``Ts``) with
-        the JAX package's sequence semantics, as a loop of per-frame
-        integrations; there is no single dispatch here. The window holds
-        one ray-bin bucket, its stats are its frames' maxima
+        the JAX package's sequence semantics through
+        ``ops/sequence.integrate_depth_sequence``: on the card one CUDA
+        graph replay per frame and one host read per window. The window
+        holds one ray-bin bucket, its stats are its frames' maxima
         (``max_bins_total``, ``max_dropped``, ``max_live_lanes``) and the
         union of their touched blocks, and a capacity miss grows the
         buckets and redoes the whole window from its entry state. The
-        active submap must not change inside the window
+        frames may be host arrays or tensors on any device. The active
+        submap must not change inside the window
         (``SubmapMapping.recast_depth_sequence`` splits at keyframes).
         ``sequence_verdict_async = True`` is accepted and ends in the state
         of the JAX package's async chain (which also replays a window whose
@@ -301,48 +308,57 @@ class DenseTSDF(BaseMap):
             cfg = dataclasses.replace(cfg, max_touched_blocks=tb)
         return cfg
 
+    def _sequence_inputs(self, Rs, Ts, textures):
+        """The window's poses in the active submap's frame (as per-frame
+        ``set_pose``, which the last frame's leaves in ``input_R`` /
+        ``input_T``), its textures (None when untextured) and the two
+        intrinsics."""
+        F = len(Rs)
+        R_c = np.zeros((F, 3, 3), np.float32)
+        T_c = np.zeros((F, 3), np.float32)
+        for f in range(F):
+            R_c[f], T_c[f] = self.convert_by_base(np.asarray(Rs[f]),
+                                                  np.asarray(Ts[f]))
+        self.input_R, self.input_T = R_c[-1].copy(), T_c[-1].copy()
+        tex = textures if (self.enable_texture and textures is not None) \
+            else None
+        kc = self.K_cam_color if self.K_cam_color is not None else \
+            self.K_cam_dep
+        return R_c, T_c, tex, self.K_cam_dep, kc
+
     def _window_entry(self, esdf):
         """What a redo restores: the map state (DenseESDF adds its ESDF
         arrays when ``esdf``)."""
         return clone_state(self.state)
 
     def _window_restore(self, entry):
-        self.state = clone_state(entry)
+        """Write the entry state back into the live tensors (a captured
+        graph writes those)."""
+        copy_state_(self.state, entry)
+
+    def _window_pass(self, cfg, inputs, depthmaps, esdf_budget):
+        """One pass of the window from the current state; returns its
+        stats."""
+        R_c, T_c, tex, K, Kc = inputs
+        self.state, stats = seq_ops.integrate_depth_sequence(
+            cfg, self.state, depthmaps, tex, R_c, T_c, K, Kc,
+            self.active_submap_id)
+        return stats
 
     def _recast_window(self, Rs, Ts, depthmaps, textures, esdf_budget=None):
-        """The window loop. With ``esdf_budget`` every frame also runs
-        DenseESDF's gated block-mode ESDF step at that budget."""
-        i32 = torch.int32
+        """The window with its verdict; with ``esdf_budget`` every frame
+        also runs DenseESDF's gated block-mode ESDF step at that budget."""
+        inputs = self._sequence_inputs(Rs, Ts, textures)
         entry = self._window_entry(esdf_budget is not None)
         for attempt in range(8):
             if attempt:
                 self._window_restore(entry)
-            cfg = self._sequence_cfg()
-            rows, touched = [], None
-            for f in range(len(depthmaps)):
-                tex = textures[f] if (self.enable_texture and
-                                      textures is not None) else \
-                    np.zeros((1, 1, 3), np.uint8)
-                st = self._integrate_frame(cfg, Rs[f], Ts[f], depthmaps[f],
-                                           tex)
-                row = [st["num_bins"].to(i32) + st["bins_dropped"].to(i32),
-                       st["alloc_overflow"].to(i32) +
-                       st["touched_dropped"].to(i32) +
-                       st["lanes_dropped"].to(i32), st["live_lanes"].to(i32)]
-                if esdf_budget is not None:
-                    row.append(self._window_esdf_step(cfg, esdf_budget, st))
-                rows.append(torch.stack(row))
-                tb = st["touched_blocks"]
-                touched = tb if touched is None else touched | tb
-            mx = torch.stack(rows).amax(0)
-            stats = {"max_bins_total": mx[0], "max_dropped": mx[1],
-                     "max_live_lanes": mx[2], "touched_blocks": touched}
-            if esdf_budget is not None:
-                stats["max_esdf_overflow"] = mx[3]
+            stats = self._window_pass(self._sequence_cfg(), inputs,
+                                      depthmaps, esdf_budget)
             if not self._sequence_verdict(stats):
                 break
         self.last_stats = stats
-        self._mark_mesh_dirty(touched)
+        self._mark_mesh_dirty(stats["touched_blocks"])
 
     def _sequence_verdict(self, stats):
         """One host read for the window; grow the buckets on a capacity

@@ -12,7 +12,9 @@ Counterpart of the JAX package's ``ops/esdf.py``:
   observed (or dirty) bounding box swept as one dense grid with full-length
   axis scans. The JAX package computes these in XLA, outside any Pallas
   kernel, and so do these plain PyTorch functions;
-- ``esdf_slice_export``: the ESDF z-slice as jet-colored particles.
+- ``esdf_slice_export``: the ESDF z-slice as jet-colored particles;
+- ``neighbor_table`` and ``neighborhood_extrema``: the JAX module's public
+  helpers for tests and debugging (no sweep runs through them).
 
 See the JAX module for the algorithms. ``esdf_seed_dirty`` updates
 ``seen_tsdf`` / ``seen_obs`` in place; ``esdf_update`` updates
@@ -30,6 +32,7 @@ import torch
 
 from taichislam_tpu_torch.core.compaction import compact_mask, compact_sort
 from taichislam_tpu_torch.core.config import TSDFConfig
+from taichislam_tpu_torch.core.device import resolve_device
 from taichislam_tpu_torch.core.geometry import inv, sign
 from taichislam_tpu_torch.core.grid import block_origin_voxel, lookup_slots
 from taichislam_tpu_torch.ops.kernels.esdf_sweep import (ENC_BIG,
@@ -40,6 +43,49 @@ from taichislam_tpu_torch.ops.kernels.esdf_sweep import (ENC_BIG,
 _C_IM, _C_IP = 4, 22
 _C_JM, _C_JP = 10, 16
 _C_KM, _C_KP = 12, 14
+
+
+def neighbor_table(device=None):
+    """The 26 neighbour directions, (26, 3) int32 in (di, dj, dk) order
+    with (0, 0, 0) left out, and their lengths, (26,) f32; on the CUDA card
+    unless ``device`` says otherwise."""
+    d = np.asarray([(i, j, k) for i in (-1, 0, 1) for j in (-1, 0, 1)
+                    for k in (-1, 0, 1) if (i, j, k) != (0, 0, 0)], np.int32)
+    dist = np.linalg.norm(d, axis=-1).astype(np.float32)
+    device = resolve_device(device)
+    return torch.from_numpy(d).to(device), torch.from_numpy(dist).to(device)
+
+
+def _axpair(h, axis, op):
+    """op of the -1 and +1 shifts of ``h`` along ``axis`` (of the trailing
+    three), cropped by one voxel on each side of that axis."""
+    n = h.shape[axis + 1]
+    return op(h.narrow(axis + 1, 0, n - 2), h.narrow(axis + 1, 2, n - 2))
+
+
+def _center_crop(h, axis):
+    return h.narrow(axis + 1, 1, h.shape[axis + 1] - 2)
+
+
+def neighborhood_extrema(halo, op):
+    """Class-wise 26-neighbourhood extrema of an (nb, V+2, V+2, V+2) halo:
+    (faces, edges, corners), each (nb, V, V, V), ``op`` (``torch.minimum``
+    or ``torch.maximum``) over the 6 face, 12 edge and 8 corner neighbours,
+    built from separable two-shift axis extrema as the JAX function builds
+    them."""
+    ax = _axpair(halo, 0, op)           # (nb, V,   V+2, V+2)
+    ay = _axpair(halo, 1, op)           # (nb, V+2, V,   V+2)
+    az = _axpair(halo, 2, op)
+    faces = op(op(_center_crop(_center_crop(ax, 1), 2),
+                  _center_crop(_center_crop(ay, 0), 2)),
+               _center_crop(_center_crop(az, 0), 1))
+    exy = _axpair(ax, 1, op)            # x±1, y±1
+    exz = _axpair(ax, 2, op)
+    eyz = _axpair(ay, 2, op)
+    edges = op(op(_center_crop(exy, 2), _center_crop(exz, 1)),
+               _center_crop(eyz, 0))
+    corners = _axpair(exy, 2, op)       # x±1, y±1, z±1
+    return faces, edges, corners
 
 
 def neighbor_slot_cols(spec, state, rows):
@@ -186,7 +232,7 @@ def esdf_seed_dirty(cfg: TSDFConfig, state, seen_tsdf, seen_obs, touched,
     eps = float(np.float32(max(cfg.esdf_seed_eps_voxels, 0.0) *
                            cfg.voxel_scale))
     touched = touched.clone()
-    touched[-1] = False
+    touched[-1].fill_(False)
     rows, kept, _ = _compact_rows(touched, touched_cap, nb)
     rows = rows[:touched_cap].long()
     valid = torch.arange(touched_cap, device=touched.device) < kept
@@ -200,15 +246,15 @@ def esdf_seed_dirty(cfg: TSDFConfig, state, seen_tsdf, seen_obs, touched,
 
     tgt = torch.where(diff_r, rows, nb - 1)
     dirty = torch.zeros((nb,), dtype=torch.bool, device=touched.device)
-    dirty[tgt] = True
+    dirty.index_fill_(0, tgt, True)
     covered = torch.zeros_like(dirty)
     covered[rows] = valid
     dirty = dirty | (touched & ~covered)
-    dirty[-1] = False
+    dirty[-1].fill_(False)
     seen_tsdf[tgt] = torch.where(diff_r[:, None], tsdf_r, seen_t_r)
-    seen_tsdf[nb - 1] = 0.0
+    seen_tsdf[nb - 1].zero_()
     seen_obs[tgt] = torch.where(diff_r[:, None], obs_r, seen_o_r)
-    seen_obs[nb - 1] = False
+    seen_obs[nb - 1].fill_(False)
     return dirty, seen_tsdf, seen_obs
 
 
@@ -239,7 +285,7 @@ def working_set(spec, state, active_submap: int, block_cap: int, NROWS: int,
     dev = state.table.device
     cap = block_cap
     blk = state.block_active & (state.block_coords[:, 0] == int(active_submap))
-    blk[-1] = False
+    blk[-1].fill_(False)
     ar_cap = torch.arange(cap, device=dev)
     if dirty_blocks is None:
         work_blk = blk
@@ -253,7 +299,7 @@ def working_set(spec, state, active_submap: int, block_cap: int, NROWS: int,
         # the dirty blocks themselves are updatable; their 26-ring is a
         # frozen rim. Rows are ordered dirty-first so rim slabs skip compute.
         dirty = dirty_blocks.clone()
-        dirty[-1] = False
+        dirty[-1].fill_(False)
         work_blk = blk & dirty
         rows_d, keptD, totalD = _compact_rows(work_blk, cap, nb)
         rows_d = rows_d[:cap]
@@ -355,7 +401,7 @@ def requeue(cfg: TSDFConfig, ws: WorkingSet, esdf_c, prev_e, fixed, prev_f,
     changed_blocks = torch.zeros((nb + 1,), dtype=torch.bool, device=dev)
     changed_blocks[tgt] = row_changed[:cap]
     changed_blocks = changed_blocks[:nb]
-    changed_blocks[-1] = False
+    changed_blocks[-1].fill_(False)
     if incremental:
         shell = _shell_mask(spec.V, dev)
         shell_changed = (diff & shell[None, :]).any(dim=1)
@@ -364,9 +410,9 @@ def requeue(cfg: TSDFConfig, ws: WorkingSet, esdf_c, prev_e, fixed, prev_f,
             ws.validD
         tgt27 = torch.where(shell_d[None, :], ws.ns_flat, nb - 1)
         shell_blocks = torch.zeros((nb,), dtype=torch.bool, device=dev)
-        shell_blocks[tgt27.reshape(-1).long()] = True
+        shell_blocks.index_fill_(0, tgt27.reshape(-1).long(), True)
         changed_blocks = changed_blocks | (ws.blk & shell_blocks)
-        changed_blocks[-1] = False
+        changed_blocks[-1].fill_(False)
     return changed_blocks
 
 

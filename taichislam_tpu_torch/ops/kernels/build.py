@@ -5,17 +5,20 @@ started together, and the objects link into one shared library with a
 plain C interface, at first use, into ``build/kernels/`` at the repository
 root (listed in ``.gitignore``). The file name carries a hash of the
 sources and flags, so an edited source builds anew. Nothing here runs at
-import.
+import. :func:`count` keeps the wrappers' launch counters true under CUDA
+graph capture and replay.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
@@ -111,3 +114,41 @@ def check(err: int, what: str) -> None:
     """Raise when a C entry point reports a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+# the launches a CUDA graph capture records in this thread (see count)
+_capture = threading.local()
+
+
+def count(fn, site=None) -> None:
+    """Count one launch of ``fn``'s kernel (``fn.launches`` and, with a
+    ``site``, ``fn.site_launches[site]``). While this thread captures a
+    CUDA graph under :func:`capture_tally` nothing runs yet: the launch
+    goes into the capture's tally instead, and every replay of the graph
+    adds the tally through :func:`add_counts`."""
+    import torch
+    tally = getattr(_capture, "tally", None)
+    if tally is not None and torch.cuda.is_current_stream_capturing():
+        tally.append((fn, site))
+    else:
+        add_counts([(fn, site)])
+
+
+def add_counts(tally, times: int = 1) -> None:
+    """Add ``times`` launches of every (fn, site) entry of ``tally``."""
+    for fn, site in tally:
+        fn.launches += times
+        if site is not None:
+            fn.site_launches[site] = fn.site_launches.get(site, 0) + times
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """Collect the launches :func:`count` sees while this thread captures
+    a graph; yields the tally, a list of (fn, site)."""
+    tally = []
+    _capture.tally = tally
+    try:
+        yield tally
+    finally:
+        _capture.tally = None

@@ -17,6 +17,13 @@ mask must be zero on halo positions (interior-only), as in the JAX
 package. Up to ``MAX_V`` a row lives in the CTA's shared memory; a larger V
 runs the kernels' device-memory build, whose row scratch (one
 ``row_scratch_bytes(V)`` slice per CTA) the wrappers allocate.
+
+The wrappers are capture-safe: their host work (shape checks, the scratch
+size, the SM count) depends on shapes only, their outputs and scratch come
+from the allocator (a graph's pool under capture), the one-time kernel
+attributes are set on the first, eager call, and stream capture takes K3's
+cooperative launch as it is; the launch counters count each replay of a
+captured graph (``build.count``).
 """
 
 from __future__ import annotations
@@ -266,7 +273,7 @@ def esdf_sweep(esdf_h, enc_h, side_h, slab_act=None, *, V: int, v1: float,
         0 if scratch is None else scratch.data_ptr(), ctas,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "esdf_sweep_launch")
-    esdf_sweep.launches += 1
+    build.count(esdf_sweep)
     return out
 
 
@@ -407,7 +414,7 @@ def esdf_sweep_loop(esdf_h, enc_hh, nsl27, upd_rows, *, V: int, v1: float,
         0 if scratch is None else scratch.data_ptr(), ctas,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "esdf_loop_launch")
-    esdf_sweep_loop.launches += 1
+    build.count(esdf_sweep_loop)
     return fld, stats
 
 

@@ -11,7 +11,10 @@ scan and the reduction on the stream, and no PyTorch op besides the
 allocations. ``segmented_block_reduce_ref`` is the plain
 PyTorch version with the same signature. The wrapper takes the plain
 version only for CPU tensors; for CUDA tensors it launches the kernel or
-raises.
+raises. It is capture-safe: its host work depends on shapes only, its
+workspace comes from the allocator (a graph's pool under capture), and its
+launch counters count each replay of a captured graph
+(``build.count``).
 """
 
 from __future__ import annotations
@@ -215,9 +218,7 @@ def segmented_block_reduce(bkey, intra, vals: Sequence[torch.Tensor],
         lanes_dropped.data_ptr(), ws.data_ptr(), ws_bytes,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "seg_accum_launch")
-    segmented_block_reduce.launches += 1
-    sites = segmented_block_reduce.site_launches
-    sites[site] = sites.get(site, 0) + 1
+    build.count(segmented_block_reduce, site)
     return touched, acc, n_touched, lanes_dropped
 
 

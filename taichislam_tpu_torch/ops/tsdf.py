@@ -38,6 +38,9 @@ from taichislam_tpu_torch.ops.kernels.seg_accum import (
     SENTINEL_BLOCK, segmented_block_reduce)
 
 
+TSDF_CHANNELS = ("TSDF", "W_TSDF", "TSDF_observed", "occupy")
+
+
 def make_tsdf_state(cfg: TSDFConfig, device=None) -> GridState:
     """Channels TSDF, W_TSDF, TSDF_observed, occupy and, textured, a
     (nb, 3, V³) color channel; on the CUDA card unless ``device`` says
@@ -296,7 +299,7 @@ def integrate(cfg: TSDFConfig, state: GridState, bins_pts, z, color, valid,
     touched_blocks = torch.zeros((spec.max_blocks + 1,), dtype=torch.bool,
                                  device=dev)
     touched_blocks[tgt] = touched_v.any(dim=1)
-    touched_blocks[-1] = False
+    touched_blocks[-1].fill_(False)
 
     # endpoint occupancy
     garbage = (spec.max_blocks + 1) * V3 - 1
@@ -309,11 +312,11 @@ def integrate(cfg: TSDFConfig, state: GridState, bins_pts, z, color, valid,
 
     # keep the garbage row clean so exports never see absorbed writes
     for v in ch.values():
-        v[-1] = 0
+        v[-1].zero_()
 
     stats = {"bins_dropped": bins.dropped,
              "num_bins": bins.valid.sum(dtype=torch.int32),
-             "alloc_overflow": state.alloc_overflow,
+             "alloc_overflow": state.alloc_overflow.clone(),
              "touched_dropped": touched_dropped,
              "lanes_dropped": lanes_dropped,
              "live_lanes": live_lanes,

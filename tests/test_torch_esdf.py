@@ -301,9 +301,11 @@ def test_max_v_is_the_largest_row_that_fits():
 
 
 def test_check_interval_runs_interval_one():
-    """DenseESDF(esdf_check_interval=4) builds, keeps the value, and runs
-    the exact interval-1 verdicts: every frame's ESDF, flags and sweeps
-    equal those of interval 1."""
+    """esdf_check_interval=1 runs the interactive per-frame verdicts and 4
+    the deferred path (one F = 1 sequence per frame, a verdict every four
+    frames), each as the JAX model with the same interval runs it: every
+    frame's ESDF, fixed flags, pending wavefront, sweeps and buckets."""
+    from taichislam_tpu.models.dense_esdf import DenseESDF as JESDF
     from taichislam_tpu_torch.models.dense_esdf import DenseESDF
     from taichislam_tpu_torch.utils.synthetic_scene import (D435_K,
                                                             orbit_sequence)
@@ -313,18 +315,31 @@ def test_check_interval_runs_interval_one():
     kw = dict(map_scale=[6.4, 6.4], voxel_scale=0.1,
               num_voxel_per_blk_axis=8, max_ray_length=2.0, max_blocks=512,
               max_bins=8192, max_submap_num=8, max_esdf_sweeps=6,
-              esdf_dense_max_voxels=0, device="cpu")
-    one = DenseESDF(**kw)
-    four = DenseESDF(esdf_check_interval=4, **kw)
-    assert (one.esdf_check_interval, four.esdf_check_interval) == (1, 4)
-    for m in (one, four):
-        m.set_dep_camera_intrinsic(K)
+              esdf_dense_max_voxels=0)
+    pairs = []
+    for interval in (1, 4):
+        jm = JESDF(esdf_check_interval=interval, **kw)
+        jm.cfg = dataclasses.replace(jm.cfg, pallas_accum="on",
+                                     pallas_esdf="on", esdf_loop_kernel="off")
+        tm = DenseESDF(esdf_check_interval=interval, device="cpu", **kw)
+        assert tm.esdf_check_interval == interval
+        for m in (jm, tm):
+            m.set_dep_camera_intrinsic(K)
+        pairs.append((jm, tm))
     for f in range(5):
-        for m in (one, four):
-            m.recast_depth_to_map(Rs[f], Ts[f], depth[f], None)
-        assert one.last_esdf_sweeps == four.last_esdf_sweeps
-        assert one._esdf_last_mode == four._esdf_last_mode
-        assert torch.equal(one.esdf, four.esdf)
-        assert torch.equal(one.esdf_fixed, four.esdf_fixed)
-        assert torch.equal(one.state.table, four.state.table)
+        for jm, tm in pairs:
+            for m in (jm, tm):
+                m.recast_depth_to_map(Rs[f], Ts[f], depth[f], None)
+            np.testing.assert_allclose(np.asarray(jm.esdf), tm.esdf.numpy(),
+                                       rtol=0, atol=1e-5)
+            for a, b in ((jm.esdf_fixed, tm.esdf_fixed),
+                         (jm._esdf_pending, tm._esdf_pending),
+                         (jm.state.table, tm.state.table)):
+                np.testing.assert_array_equal(np.asarray(a), b.numpy())
+            for name in ("last_esdf_sweeps", "_esdf_last_mode",
+                         "_bin_bucket", "_esdf_cap_bucket", "_esdf_frame"):
+                assert getattr(jm, name) == getattr(tm, name), (f, name)
+    (_, one), (_, four) = pairs
+    assert one._frame_pack is None and four._frame_pack is not None
+    assert not torch.equal(one.esdf, four.esdf)
     assert int(one.esdf_observed.sum()) > 0

@@ -263,6 +263,29 @@ def test_esdf_mapping_type_end_to_end(textured):
     assert np.all(np.abs(vals) <= tc.mapping.max_ray_length)
 
 
+def test_esdf_check_interval_takes_the_deferred_path():
+    """~esdf/check_interval reaches DenseESDF: at 2, process_taichi runs
+    the deferred per-frame path (the interval accumulators fill on odd
+    frames and the verdict empties them) on both cores, and the published
+    surface and slice clouds stay the JAX core's."""
+    (jc, tc), (jp, tp) = make_pair(
+        extra={"~mapping_type": "esdf", "~enable_mesher": False,
+               "~esdf/publish_slice_z": 1.0, "~esdf/check_interval": 2,
+               **SMALL_K})
+    for core in (jc, tc):
+        assert core.mapping.esdf_check_interval == 2
+    for f in range(3):
+        for core in (jc, tc):
+            core.stage_depth(fake_frame(f, x=0.05 * f),
+                             fake_depth_msg(value=1000 - 40 * f))
+            core.process_taichi()
+        assert (tc.mapping._frame_pack is None) == (f % 2 == 1)
+        assert (jc.mapping._frame_pack is None) == (f % 2 == 1)
+    assert tc.mapping._esdf_frame == jc.mapping._esdf_frame == 3
+    assert len(tp) == 6
+    assert_same_published(jp, tp)
+
+
 def test_pcl_frame_matches_jax():
     """The point-cloud branch of recast (stage_pcl): a PointCloud2 wall
     decoded by each package's codec, integrated and published the same."""

@@ -1,13 +1,19 @@
-"""Multi-frame ingest (``recast_depth_sequence``): the PyTorch port against
-the JAX package's sequences and against the port's own per-frame loop.
+"""Multi-frame ingest: ``ops/sequence.py`` (``integrate_depth_sequence``,
+``integrate_esdf_sequence``, ``accumulate_frame_verdict``) and the models'
+``recast_depth_sequence``, the PyTorch port against the JAX package's
+sequences and against the port's own per-frame loop.
 
-The port runs a window as a loop of per-frame calls with the JAX sequence's
-semantics: one ray-bin bucket per window, window maxima, grow-and-redo from
-the entry state, keyframe splits in SubmapMapping, and for DenseESDF the
-block-mode ESDF step at ``min(max_esdf_sweeps, 6)`` on every frame. The JAX
-models take their Pallas paths in interpret mode (K1's accumulation order),
-so bounds: block tables, observed flags and ESDF flags exact; TSDF, W and
-ESDF within 1e-5.
+On the CPU the port's sequences run their plain ``*_ref`` loop (the card
+replays a captured graph of the same frame body; chip_smoke.py holds the
+two equal). The semantics are the JAX sequence's: one ray-bin bucket per
+window, window maxima, grow-and-redo from the entry state, keyframe splits
+in SubmapMapping, and for DenseESDF the block-mode ESDF step at
+``min(max_esdf_sweeps, 6)`` on every frame. The JAX functions take their
+Pallas paths in interpret mode (K1's accumulation order), so bounds: block
+tables, observed flags, ESDF flags, the pending wavefront and the window
+stats exact; TSDF, W and ESDF within 1e-5.
+
+Run on the CPU: ``python -m pytest tests/test_torch_sequence.py -q``.
 """
 
 import dataclasses
@@ -18,15 +24,23 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+import jax.numpy as jnp  # noqa: E402
+
+from taichislam_tpu.core.config import TSDFConfig as JConfig  # noqa: E402
 from taichislam_tpu.models.dense_esdf import DenseESDF as JESDF  # noqa: E402
 from taichislam_tpu.models.dense_tsdf import DenseTSDF as JTSDF  # noqa: E402
 from taichislam_tpu.models.submap_mapping import \
     SubmapMapping as JSM  # noqa: E402
+from taichislam_tpu.ops import sequence as jseq  # noqa: E402
+from taichislam_tpu.ops import tsdf as jt  # noqa: E402
 from taichislam_tpu_torch import bridge  # noqa: E402
 from taichislam_tpu_torch.models.dense_esdf import DenseESDF as TESDF  # noqa: E402,E501
 from taichislam_tpu_torch.models.dense_tsdf import DenseTSDF as TTSDF  # noqa: E402,E501
+from taichislam_tpu_torch.core.config import TSDFConfig as TConfig  # noqa: E402,E501
 from taichislam_tpu_torch.models.submap_mapping import \
     SubmapMapping as TSM  # noqa: E402
+from taichislam_tpu_torch.ops import sequence as tseq  # noqa: E402
+from taichislam_tpu_torch.ops import tsdf as tt  # noqa: E402
 from tests.test_tsdf import K_DEP, synthetic_depth  # noqa: E402
 
 OPTS = dict(map_scale=[6.4, 6.4], voxel_scale=0.1, num_voxel_per_blk_axis=8,
@@ -234,3 +248,117 @@ def test_async_window_verdict_matches_sync():
     j_async.recast_depth_sequence(Rs[2:], Ts[2:], [depths[2], depths[3]])
     assert j_async.count_active() == t_async.count_active()
     assert_grids_match(j_async.state, t_async.state)
+
+
+# ---------------------------------------------------------------------------
+# ops/sequence.py against the JAX functions
+# ---------------------------------------------------------------------------
+
+OPS_KW = {k: v for k, v in OPTS.items()
+          if k not in ("max_disp_particles",)}
+OPS_KW["map_scale"] = tuple(OPS_KW["map_scale"])
+
+
+def _ops_inputs(n=3):
+    Rs, Ts, depths = _frames(n)
+    return np.stack(Rs), np.stack(Ts), depths
+
+
+def _jax_window(cfg, fn, *head, depths, Rs, Ts):
+    F = len(depths)
+    return fn(cfg, *head, jnp.asarray(depths),
+              jnp.zeros((F, 1, 1, 3), jnp.uint8), jnp.asarray(Rs),
+              jnp.asarray(Ts), jnp.asarray(K_DEP), jnp.asarray(K_DEP),
+              jnp.int32(0))
+
+
+def _assert_stats(js, ts):
+    for k in js:
+        np.testing.assert_array_equal(np.asarray(js[k]), ts[k].numpy(),
+                                      err_msg=k)
+    assert set(js) == set(ts)
+
+
+@pytest.mark.parametrize("form", ["stacked", "tuple", "tensors"])
+def test_integrate_depth_sequence_op_matches_jax(form):
+    """integrate_depth_sequence on seeded frames against the JAX function:
+    the state and the window stats; the frames as an (F, h, w) array, a
+    tuple of arrays, or a tuple of CPU tensors."""
+    Rs, Ts, depths = _ops_inputs()
+    jcfg = JConfig(pallas_accum="on", **OPS_KW)
+    tcfg = TConfig(**OPS_KW)
+    jstate, jstats = _jax_window(jcfg, jseq.integrate_depth_sequence,
+                                 jt.make_tsdf_state(jcfg), depths=depths,
+                                 Rs=Rs, Ts=Ts)
+    frames = {"stacked": depths, "tuple": tuple(depths),
+              "tensors": tuple(torch.from_numpy(d.astype(np.int32))
+                               for d in depths)}[form]
+    tstate = tt.make_tsdf_state(tcfg, device=DEV)
+    out, tstats = tseq.integrate_depth_sequence(
+        tcfg, tstate, frames, None, Rs, Ts, K_DEP, K_DEP, 0)
+    assert out is tstate
+    assert_grids_match(jstate, tstate)
+    _assert_stats(jstats, tstats)
+    assert int(tstats["max_live_lanes"]) > 0
+
+
+@pytest.mark.parametrize("budget", [1, 6])
+def test_integrate_esdf_sequence_op_matches_jax(budget):
+    """integrate_esdf_sequence against the JAX function at a budget that
+    takes K2's twin (1) and K3's (6), with a block cap small enough to
+    overflow: the state, the ESDF, fixed flags, pending wavefront,
+    snapshots and the window stats."""
+    Rs, Ts, depths = _ops_inputs()
+    kw = dict(OPS_KW, esdf_seed_eps_voxels=0.0)
+    jcfg = JConfig(pallas_accum="on", pallas_esdf="on",
+                   esdf_loop_kernel="off", **kw)
+    tcfg = TConfig(**kw)
+    nb, V3 = tcfg.max_blocks + 1, tcfg.grid.voxels_per_block
+    cap = 16
+    jout = _jax_window(
+        jcfg, jseq.integrate_esdf_sequence, budget, cap,
+        jt.make_tsdf_state(jcfg), jnp.zeros((nb, V3), jnp.float32),
+        jnp.zeros((nb, V3), jnp.int8), jnp.zeros((nb,), bool),
+        jnp.zeros((nb, V3), jnp.float32), jnp.zeros((nb, V3), bool),
+        depths=depths, Rs=Rs, Ts=Ts)
+    tout = tseq.integrate_esdf_sequence(
+        tcfg, budget, cap, tt.make_tsdf_state(tcfg, device=DEV),
+        torch.zeros((nb, V3)), torch.zeros((nb, V3), dtype=torch.int8),
+        torch.zeros((nb,), dtype=torch.bool), torch.zeros((nb, V3)),
+        torch.zeros((nb, V3), dtype=torch.bool), depths, None, Rs, Ts,
+        K_DEP, K_DEP, 0)
+    assert_grids_match(jout[0], tout[0])
+    names = ("esdf", "fixed", "pending", "seen_tsdf", "seen_obs")
+    for name, j, t in zip(names, jout[1:6], tout[1:6]):
+        if name in ("esdf", "seen_tsdf"):
+            np.testing.assert_allclose(np.asarray(j), t.numpy(), rtol=0,
+                                       atol=1e-5, err_msg=name)
+        else:
+            np.testing.assert_array_equal(np.asarray(j), t.numpy(),
+                                          err_msg=name)
+    _assert_stats(jout[6], tout[6])
+    assert int(tout[6]["max_esdf_overflow"]) > 0
+    assert bool(tout[3].any())
+
+
+def test_accumulate_frame_verdict_matches_jax():
+    """The deferred path's fold: running maxima and the touched union."""
+    rng = np.random.default_rng(5)
+    pack = rng.integers(0, 50, 4).astype(np.int32)
+    union = rng.random(33) < 0.3
+    keys = ("max_bins_total", "max_dropped", "max_live_lanes",
+            "max_esdf_overflow")
+    vals = rng.integers(0, 50, 4).astype(np.int32)
+    touched = rng.random(33) < 0.3
+    jstats = {k: jnp.int32(v) for k, v in zip(keys, vals)}
+    jstats["touched_blocks"] = jnp.asarray(touched)
+    tstats = {k: torch.tensor(int(v), dtype=torch.int32)
+              for k, v in zip(keys, vals)}
+    tstats["touched_blocks"] = torch.from_numpy(touched)
+    jp, ju = jseq.accumulate_frame_verdict(jnp.asarray(pack),
+                                           jnp.asarray(union), jstats)
+    tp, tu = tseq.accumulate_frame_verdict(torch.from_numpy(pack),
+                                           torch.from_numpy(union), tstats)
+    assert tp.dtype == torch.int32
+    np.testing.assert_array_equal(np.asarray(jp), tp.numpy())
+    np.testing.assert_array_equal(np.asarray(ju), tu.numpy())

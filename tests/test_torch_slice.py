@@ -165,9 +165,9 @@ def test_bin_bucket_rule_matches_jax(n):
 def test_unported_modes_raise():
     """No mode of the models raises any more: recast_depth_sequence runs
     (tests/test_torch_sequence.py holds it to the JAX sequences), and
-    esdf_check_interval > 1 is accepted and runs interval 1 (see
-    test_torch_esdf.py). A window of one empty frame leaves the map
-    empty."""
+    esdf_check_interval > 1 runs the JAX package's deferred verdicts
+    (tests/test_torch_deferred.py and test_torch_esdf.py hold it to the
+    JAX model). A window of one empty frame leaves the map empty."""
     from taichislam_tpu_torch.models.dense_tsdf import DenseTSDF
     kw = {k: v for k, v in KW.items() if not k.startswith(("esdf", "max_e"))}
     for m in (TModel(**KW, device=DEV), DenseTSDF(**kw, device=DEV)):

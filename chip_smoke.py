@@ -125,7 +125,21 @@ Phases:
      at tests/test_esdf.py:384's settings (raise slack 0, seed eps 0) and
      reported at config 3's own;
      the first 8 per-call frames against the CPU plain path (tables,
-     observed and fixed flags exact, TSDF and ESDF within 4e-3).
+     observed and fixed flags exact, TSDF and ESDF within 4e-3);
+ 22. the port's bench.py (python -m taichislam_tpu_torch.bench) at full
+     size through its run_bench: 50 orbit frames at 640x480 staged on the
+     card once, every row (fusion only, fusion + ESDF at 3 and 32 sweeps,
+     the 8192-block map) sized by the JAX bench's rule and timed over
+     graph replays, the full-map and incremental marching cubes; its JSON
+     line logged; no capture in a timed pass and no drop; launches per
+     frame (2 K1, 1 K3 with the ESDF, no K2); the primary's map after its
+     timed passes against the same window through the eager *_ref loop
+     on the card, bit for bit at float16 storage, with both ms/frame and
+     phase 3's beside them; the idle share of one profiled window;
+ 23. the port's tools, each in its own process: bench_configs --frames 40
+     (all five configurations and their table), bench_secondary,
+     compare_vs_reference (FIDELITY: PASS) and viewer_demo_scene on a free
+     port for 3 s.
 
 Exits non-zero without a result when no CUDA device is present. The last
 line is {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -2018,6 +2032,20 @@ def launch_node_phase(dev, smi, frames, launches):
         f"transport built: {native}); this phase used LoopbackTransport")
 
 
+def run_tool(args, timeout_s, want=None):
+    """``python -m <args>`` from the checkout's root; returns (stdout lines,
+    wall s). Fails unless it exits 0 (and prints ``want``)."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", *args], cwd=ROOT,
+                         capture_output=True, text=True, timeout=timeout_s)
+    wall = time.perf_counter() - t0
+    lines = res.stdout.strip().splitlines()
+    require(res.returncode == 0 and (want is None or want in res.stdout),
+            f"{args[0]}: exit {res.returncode}, {lines[-5:]}, "
+            f"{res.stderr[-2000:]}")
+    return lines, wall
+
+
 def entry_points_phase(smi, timeout_s=300):
     """Phase 17: the port's entry points as a user runs them, each in its
     own process on the card. The offline demo serves its render through the
@@ -2032,17 +2060,9 @@ def entry_points_phase(smi, timeout_s=300):
                                 "--benchmark", "--run_num", "5"],
              "avg gen convex cost time")]
     for name, args, want in runs:
-        t0 = time.perf_counter()
-        res = subprocess.run([sys.executable, "-m", *args], cwd=ROOT,
-                             capture_output=True, text=True,
-                             timeout=timeout_s)
-        wall = time.perf_counter() - t0
-        tail = res.stdout.strip().splitlines()[-3:]
-        require(res.returncode == 0 and want in res.stdout,
-                f"{name}: exit {res.returncode}, {tail}, "
-                f"{res.stderr[-2000:]}")
+        lines, wall = run_tool(args, timeout_s, want)
         log(f"[phase17] python -m {' '.join(args)}: exit 0 in {wall:.1f} s "
-            f"wall ({smi}); last lines {tail}")
+            f"wall ({smi}); last lines {lines[-3:]}")
 
 
 def hold_seq_bins(m, floor):
@@ -2401,18 +2421,18 @@ def c3_cpu_phase(dev, frames, K, snap):
         f"tables, observed and fixed flags exact; max abs {errs}")
 
 
-def c3_profile(m, frames, n):
-    """torch.profiler over ``n`` per-call frames of ``m`` (graph
-    replays): CUDA kernels per frame, by name, and the idle share."""
+def profile_frames(fn, n, out_name):
+    """torch.profiler over ``fn()``, which runs ``n`` frames: CUDA kernels
+    per frame, device-busy ms per frame, wall ms per frame under the
+    profiler, kernel counts by name and the largest device ms per frame by
+    name; the table goes to ``build/chip_smoke/<out_name>``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    depth, Rs, Ts = frames
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for f in range(n):
-            m.recast_depth_to_map(Rs[f], Ts[f], depth[f], None)
+        fn()
         torch.cuda.synchronize()
     wall = 1000 * (time.perf_counter() - t0)
     kernels = [e for e in prof.events()
@@ -2424,11 +2444,22 @@ def c3_profile(m, frames, n):
         by_name[k] = by_name.get(k, 0) + 1
         dev_ms[k] = dev_ms.get(k, 0.0) + e.device_time_total / 1000.0 / n
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    (OUT_DIR / "c3_profile.txt").write_text(prof.key_averages().table(
+    (OUT_DIR / out_name).write_text(prof.key_averages().table(
         sort_by="cuda_time_total", row_limit=60))
     top = dict(sorted(((k, round(v, 4)) for k, v in dev_ms.items()),
                       key=lambda x: -x[1])[:8])
     return len(kernels) / n, busy / n, wall / n, by_name, top
+
+
+def c3_profile(m, frames, n):
+    """torch.profiler over ``n`` per-call frames of ``m`` (graph
+    replays): CUDA kernels per frame, by name, and the idle share."""
+    depth, Rs, Ts = frames
+
+    def run():
+        for f in range(n):
+            m.recast_depth_to_map(Rs[f], Ts[f], depth[f], None)
+    return profile_frames(run, n, "c3_profile.txt")
 
 
 def hold_frame_bins(m, floor):
@@ -2589,6 +2620,151 @@ def c3_phase(dev, smi, launches):
     seq.graph_cache.clear()
     c3_cpu_phase(dev, frames, K, snap)
     log(f"[phase21] took {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phases 22-23: the measurement entry points
+# ---------------------------------------------------------------------------
+
+def states_bit_equal(a, b, tag):
+    """Two BenchStates bit for bit: the grid state and the ESDF carries."""
+    import torch
+    names = ("esdf", "fixed", "pending", "seen_tsdf", "seen_obs")
+    pairs = [(f, getattr(a.state, f), getattr(b.state, f))
+             for f in a.state._fields if f != "channels"]
+    pairs += [(k, a.state.channels[k], b.state.channels[k])
+              for k in a.state.channels]
+    pairs += list(zip(names, a.carries, b.carries))
+    for name, x, y in pairs:
+        require(torch.equal(bits(x), bits(y)), f"{tag}: {name}")
+
+
+def bench_phase(dev, smi, launches, eager_ms):
+    """Phase 22: the port's bench.py at full size (50 orbit frames at
+    640x480, staged on the card once) through its entry point's
+    ``run_bench``: every row sized by the JAX bench's rule and timed over
+    graph replays (CUDA events, best of 3; no capture in a timed pass, no
+    drop). Then the primary's map after its timed passes against the same
+    window through the eager ``integrate_esdf_sequence_ref`` on the card,
+    bit for bit at float16 storage; K1 / K3 launches per frame (K2 none);
+    the eager ms/frame beside phase 3's for the same configuration; and
+    the idle share of one profiled window."""
+    import torch
+    from taichislam_tpu_torch import bench
+    from taichislam_tpu_torch.ops import sequence as seq
+    from taichislam_tpu_torch.utils.synthetic_scene import D435_K
+    t0 = time.perf_counter()
+    depth, Rs, Ts = bench.make_inputs(bench.N_FRAMES)
+    frames = bench.stage_frames(depth, Rs, Ts, D435_K, dev)
+    n = bench.N_FRAMES
+    log(f"[phase22] rendered and staged {n} 640x480 frames in "
+        f"{time.perf_counter() - t0:.1f} s")
+    seq.graph_cache.clear()
+    seq.graph_cache.reset_counts()
+    counters = reset_counts()
+    t1 = time.perf_counter()
+    out, rows = bench.run_bench(frames)
+    got, sites = read_counts(counters, launches)
+    out["device"] = bench.device_info(dev)
+    log(f"[phase22] bench line: {json.dumps(out)}")
+    log(f"[phase22] run_bench took {time.perf_counter() - t1:.1f} s; "
+        f"graph captures {seq.graph_cache.captures} "
+        f"({seq.graph_cache.capture_ms:.1f} ms, warm-up included), replays "
+        f"{seq.graph_cache.replays}; launches {got}, K1 by site {sites}")
+    want = {"fusion": (2, 0, 0), "primary": (2, 0, 1),
+            "drained": (2, 0, 1), "big": (2, 0, 0)}
+    for name, r in rows.items():
+        lp = r["launches_per_frame"]
+        require(r["timed_captures"] == 0, f"{name}: capture in a timed pass")
+        w = r["window"]
+        require(w["dropped"] == 0 and w["esdf_overflow"] == 0 and
+                w["bins_total"] <= r["cfg"].max_bins, f"{name}: drops {w}")
+        require((lp["K1"], lp["K2"], lp["K3"]) == want[name],
+                f"{name}: launches per frame {lp}")
+        log(f"[phase22] {name}: best {r['ms_per_frame']:.3f} ms/frame, "
+            f"median {r['median_ms_per_frame']:.3f}, spread "
+            f"{r['spread_ms_per_frame']:.3f} (passes {r['passes_ms']} ms "
+            f"per window of {n}) ({smi}); sized in {r['rounds']} windows: "
+            f"max_bins {r['cfg'].max_bins} max_march_lanes "
+            f"{r['cfg'].max_march_lanes} max_touched_blocks "
+            f"{r['cfg'].max_touched_blocks} esdf_cap {r['esdf_cap']}; no "
+            f"capture and no drop in the timed passes (window {w}); "
+            f"launches per frame {lp}")
+
+    # the primary's map after its timed passes against the eager loop
+    prim = rows["primary"]
+    cfg, cap, bs = prim["cfg"], prim["esdf_cap"], prim["bench_state"]
+    require(bs.state.channels["TSDF"].dtype == torch.float16,
+            "bench storage is not float16")
+    ref = bench.BenchState(cfg, dev)
+    counters = reset_counts()
+    ms_ref, _ = bench.timed(dev, lambda: seq.integrate_esdf_sequence_ref(
+        cfg, 3, cap, ref.state, *ref.carries, frames.depth, None, frames.Rs,
+        frames.Ts, frames.K, frames.K, 0))
+    got_e, _ = read_counts(counters, {"K1": 0, "K2": 0, "K3": 0})
+    states_bit_equal(bs, ref, "bench primary, graph vs eager")
+    log(f"[phase22] primary after its timed passes == the same {n} frames "
+        f"through the eager integrate_esdf_sequence_ref on the card, bit for "
+        f"bit (float16 TSDF and W, flags, ESDF, fixed, pending, snapshots); "
+        f"eager {ms_ref / n:.3f} ms/frame (launches per frame K1 "
+        f"{got_e['K1'] / n:.2f} K3 {got_e['K3'] / n:.2f}) against the graph's "
+        f"{prim['ms_per_frame']:.3f}; phase 3's eager per-frame loop, same "
+        f"configuration, {eager_ms:.3f} ms/frame in this call ({smi})")
+    del ref
+
+    # one profiled window of the primary
+    bs.reset()
+    k_n, busy, wall, _, top = profile_frames(
+        lambda: bench.run_window(cfg, cap, 3, bs, frames), n,
+        "bench_profile.txt")
+    idle = 1 - busy / prim["ms_per_frame"]
+    why = (" (below 0: the kernels ran longer under the profiler than the "
+           "whole unprofiled frame; no idle time is measurable)"
+           if idle < 0 else "")
+    log(f"[phase22] profiled one primary window ({n} frames, graph "
+        f"replays): {k_n:.0f} CUDA kernels per frame, device busy "
+        f"{busy:.3f} ms per frame: idle share {idle:.3f} of the unprofiled "
+        f"best {prim['ms_per_frame']:.3f} ms/frame{why}, "
+        f"{1 - busy / wall:.3f} of the {wall:.3f} ms/frame under the "
+        f"profiler; device ms per frame by kernel, largest first: {top} "
+        f"({smi})")
+    del rows, prim, bs
+    seq.graph_cache.clear()
+    torch.cuda.empty_cache()
+    log(f"[phase22] took {time.perf_counter() - t0:.1f} s")
+
+
+def tools_phase(smi):
+    """Phase 23: the port's tools, each in its own process on the card:
+    bench_configs at 40 frames (all five configurations; the fixtures are
+    rendered and fused into build/fixtures/ first), bench_secondary,
+    compare_vs_reference (must print FIDELITY: PASS) and the viewer's demo
+    scene for a few seconds on a free port."""
+    pkg = "taichislam_tpu_torch.tools."
+    lines, wall = run_tool([pkg + "bench_configs", "--frames", "40"], 900,
+                           "== BASELINE.json configs (cuda")
+    table = lines[[i for i, ln in enumerate(lines)
+                   if ln.startswith("== BASELINE.json configs")][-1]:]
+    configs = [ln.split()[0] for ln in table[1:]]
+    require(configs == ["1", "2", "3", "3", "4", "4", "5"],
+            f"bench_configs rows {configs}")
+    log(f"[phase23] bench_configs --frames 40: exit 0 in {wall:.1f} s wall "
+        f"({smi})")
+    for ln in table:
+        log(f"[phase23]   {ln}")
+    lines, wall = run_tool([pkg + "bench_secondary"], 300,
+                           "marching cubes (full map")
+    log(f"[phase23] bench_secondary: exit 0 in {wall:.1f} s wall ({smi})")
+    for ln in lines:
+        log(f"[phase23]   {ln}")
+    lines, wall = run_tool([pkg + "compare_vs_reference"], 300,
+                           "FIDELITY: PASS")
+    log(f"[phase23] compare_vs_reference on the card: exit 0 in {wall:.1f} "
+        f"s: {lines}")
+    lines, wall = run_tool([pkg + "viewer_demo_scene", "--port", "0",
+                            "--seconds", "3"], 300, "[viewer-demo] serving")
+    log(f"[phase23] viewer_demo_scene --port 0 --seconds 3: exit 0 in "
+        f"{wall:.1f} s wall; {lines[-1]}")
 
 
 # ---------------------------------------------------------------------------
@@ -3239,10 +3415,12 @@ def main():
     log(f"[phase3] blocks {int(state.num_blocks)} observed voxels {n_obs} "
         f"sweeps/frame {pf3[:, 5].tolist()} peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    phase3_ms = {}
     for name, c, cp, b in (("fusion+esdf budget 3", cfg, cap, 3),
                            ("fusion+esdf budget 1", cfg1, cap1, 1),
                            ("fusion only", cfg, cap, 0)):
         ms = cuda_ms(lambda: run_frames(c, frames, dev, cp, b), 3) / N_FRAMES
+        phase3_ms[name] = ms
         log(f"[phase3] {name}: {ms:.3f} ms/frame ({smi})")
     ev = []
     run_frames(cfg, frames, dev, cap, 3, stages=ev)
@@ -3337,6 +3515,12 @@ def main():
 
     # ---- phase 21 --------------------------------------------------------
     c3_phase(dev, smi, launches)
+
+    # ---- phases 22-23 ----------------------------------------------------
+    bench_phase(dev, smi, launches, phase3_ms["fusion+esdf budget 3"])
+    t0 = time.perf_counter()
+    tools_phase(smi)
+    log(f"[phase23] took {time.perf_counter() - t0:.1f} s")
 
     src = "taichislam_tpu_torch/csrc/"
     table = [("seg_accum (K1)", "K1", src + "seg_accum.cu",

@@ -97,6 +97,13 @@ def test_port_imports_no_jax():
                  "taichislam_tpu_torch.demo",
                  "taichislam_tpu_torch.examples.demo_synthetic",
                  "taichislam_tpu_torch.examples.gen_topo_graph",
+                 "taichislam_tpu_torch.bench",
+                 "taichislam_tpu_torch.tools.bench_configs",
+                 "taichislam_tpu_torch.tools.bench_secondary",
+                 "taichislam_tpu_torch.tools.compare_vs_reference",
+                 "taichislam_tpu_torch.tools.gen_fixtures",
+                 "taichislam_tpu_torch.tools.reference_math",
+                 "taichislam_tpu_torch.tools.viewer_demo_scene",
                  "taichislam_tpu_torch.ops.kernels.seg_accum",
                  "taichislam_tpu_torch.ops.kernels.esdf_sweep"):
         assert name in imported, name

@@ -139,7 +139,15 @@ Phases:
  23. the port's tools, each in its own process: bench_configs --frames 40
      (all five configurations and their table), bench_secondary,
      compare_vs_reference (FIDELITY: PASS) and viewer_demo_scene on a free
-     port for 3 s.
+     port for 3 s;
+ 24. the port from an installed wheel: a wheel of the tree built offline
+     by pip and installed into a temporary site directory; in a child
+     process that sees only that directory, the package imports through
+     its re-exported names, nvcc builds K1 and
+     K3 from the installed csrc/ into <site>/build/kernels/, phase 5's
+     DenseESDF runs its 4 frames with both launched, and the native
+     transport builds and carries one message over loopback multicast;
+     the same run from the checkout gives the same map bit for bit.
 
 Exits non-zero without a result when no CUDA device is present. The last
 line is {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -151,6 +159,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -160,6 +169,11 @@ import numpy as np
 
 N_FRAMES = 16
 CPU_FRAMES = 4
+# phase 5's model API run, again in phase 24 from an installed wheel
+PHASE5_MAP = dict(map_scale=[10, 10], voxel_scale=0.05, max_ray_length=3.0,
+                  max_blocks=2048, max_bins=8192, max_submap_num=64,
+                  storage_dtype="float16", esdf_dense_max_voxels=0,
+                  max_esdf_sweeps=3, esdf_raise_slack_voxels=0.5)
 OUT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 
 
@@ -2768,6 +2782,179 @@ def tools_phase(smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 24: the port from an installed wheel
+# ---------------------------------------------------------------------------
+
+def installed_esdf_run(frames_npz, out_dir, map_json):
+    """Phase 5's DenseESDF (``map_json``, :data:`PHASE5_MAP` as JSON) over
+    the 4 frames in ``frames_npz``, through the package's re-exported
+    names; writes the map's channels, block table and
+    ESDF as .npy under ``out_dir`` and returns what the run saw: where the
+    package and its kernel sources lie, the library it loaded, the nvcc
+    build seconds, the K1 / K3 launches, and whether the native transport
+    built and carried one message over a loopback multicast channel. It
+    imports everything itself: phase 24 runs its source in a child process
+    against the installed copy, and runs it here against the checkout."""
+    import json
+    import os
+    import time
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    import taichislam_tpu_torch
+    from taichislam_tpu_torch import runtime
+    from taichislam_tpu_torch.core import GridSpec, TSDFConfig  # noqa: F401
+    from taichislam_tpu_torch.models import DenseESDF
+    from taichislam_tpu_torch.node import TaichiSLAMNodeCore  # noqa: F401
+    from taichislam_tpu_torch.ops.kernels import build
+    from taichislam_tpu_torch.ops.kernels import esdf_sweep as ks
+    from taichislam_tpu_torch.ops.kernels import seg_accum as k1
+
+    dev = torch.device("cuda", 0)
+    fr = np.load(frames_npz)
+    t0 = time.perf_counter()
+    built = not build.library_path().exists()
+    build.library()
+    build_s = time.perf_counter() - t0
+    before = (k1.segmented_block_reduce.launches,
+              ks.esdf_sweep_loop.launches)
+    m = DenseESDF(**json.loads(map_json), device=dev)
+    m.set_dep_camera_intrinsic(fr["K"])
+    for f in range(len(fr["depth"])):
+        m.recast_depth_to_map(fr["Rs"][f], fr["Ts"][f], fr["depth"][f], None)
+    torch.cuda.synchronize()
+    launches = {"K1": k1.segmented_block_reduce.launches - before[0],
+                "K3": ks.esdf_sweep_loop.launches - before[1]}
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    arrays = dict(m.state.channels, table=m.state.table, esdf=m.esdf)
+    for name, t in arrays.items():
+        np.save(out / f"{name}.npy", t.cpu().numpy())
+    native = runtime.native_available()
+    got = []
+    if native:
+        # a port and a payload of this process's own: another run on the
+        # host neither takes nor adds to its message
+        port = 20000 + os.getpid() % 20000
+        payload = f"installed {os.getpid()} {time.time_ns()}".encode()
+        tr = runtime.NativeUDPMulticastTransport(
+            f"udpm://224.0.0.251:{port}?ttl=0")
+        try:
+            time.sleep(0.2)
+            tr.publish("phase24", payload)
+            got = [list(x) for x in tr.poll(2000)
+                   if x == ("phase24", payload)]
+        finally:
+            tr.close()
+    return {"file": taichislam_tpu_torch.__file__, "csrc": str(build.CSRC),
+            "library": str(build.library_path()),
+            "library_exists": build.library_path().exists(),
+            "built": built, "build_s": build_s, "launches": launches,
+            "arrays": sorted(arrays), "native": native,
+            "transport_library": str(runtime.library_path()),
+            "delivered": len(got)}
+
+
+# pip with no index, no dependencies and no version check: nothing online
+PIP_OFFLINE = ("--no-deps", "--no-index", "--disable-pip-version-check")
+
+
+def build_wheel(dist, src):
+    """A wheel of the checkout's packages, built offline by pip in a copy
+    of them (``src``), so that the checkout gets no build/ or egg-info.
+    Returns its path."""
+    import shutil
+    skip = shutil.ignore_patterns("__pycache__", "*.pyc", "*.so")
+    src.mkdir(parents=True)
+    shutil.copy2(ROOT / "pyproject.toml", src)
+    for pkg in ("taichislam_tpu", "taichislam_tpu_torch"):
+        shutil.copytree(ROOT / pkg, src / pkg, ignore=skip)
+    res = subprocess.run([sys.executable, "-m", "pip", "wheel", str(src),
+                          *PIP_OFFLINE, "--no-build-isolation", "-w",
+                          str(dist)], cwd=src, capture_output=True,
+                         text=True, timeout=300)
+    wheels = sorted(dist.glob("*.whl"))
+    require(res.returncode == 0 and len(wheels) == 1,
+            f"pip wheel: exit {res.returncode}, wheels {wheels}: "
+            f"{res.stderr[-2000:]}")
+    return wheels[0]
+
+
+def installed_phase(smi, frames):
+    """Phase 24: build a wheel of the tree, install it into a temporary
+    site directory, and run :func:`installed_esdf_run` there in a child
+    process (cwd the temporary directory, PYTHONPATH the site directory
+    only): the package and its csrc/ must come from the site directory,
+    nvcc must build K1 and K3 into ``<site>/build/kernels/``, both must
+    launch, and the native transport must build and carry a message. The
+    same run from the checkout, here, must give the same map bit for
+    bit."""
+    import inspect
+    import tempfile
+    t0 = time.perf_counter()
+    depth, Rs, Ts, K = frames
+    with tempfile.TemporaryDirectory(prefix="tslam_wheel_") as tmp:
+        tmp = Path(tmp)
+        t1 = time.perf_counter()
+        whl = build_wheel(tmp / "dist", tmp / "src")
+        site = tmp / "site"
+        res = subprocess.run([sys.executable, "-m", "pip", "install",
+                              *PIP_OFFLINE, "--target", str(site), str(whl)],
+                             capture_output=True, text=True, timeout=300)
+        require(res.returncode == 0, f"pip install: {res.stderr[-2000:]}")
+        log(f"[phase24] {whl.name} built and installed into a temporary "
+            f"site directory in {time.perf_counter() - t1:.1f} s")
+        np.savez(tmp / "frames.npz", depth=np.stack(depth[:4]),
+                 Rs=np.stack(Rs[:4]), Ts=np.stack(Ts[:4]), K=K)
+        code = (inspect.getsource(installed_esdf_run) + "\nimport json, "
+                "sys\nprint(json.dumps(installed_esdf_run(*sys.argv[1:])))"
+                "\n")
+        env = dict(os.environ, PYTHONPATH=str(site))
+        t1 = time.perf_counter()
+        args = (str(tmp / "frames.npz"), json.dumps(PHASE5_MAP))
+        res = subprocess.run([sys.executable, "-c", code, args[0],
+                              str(tmp / "child"), args[1]],
+                             cwd=tmp, env=env, capture_output=True,
+                             text=True, timeout=600)
+        child_s = time.perf_counter() - t1
+        require(res.returncode == 0,
+                f"installed run: exit {res.returncode} {res.stderr[-3000:]}")
+        got = json.loads(res.stdout.strip().splitlines()[-1])
+        under = {k: Path(got[k]).resolve().is_relative_to(site.resolve())
+                 for k in ("file", "csrc", "library", "transport_library")}
+        log(f"[phase24] installed copy: {got['file']}; kernels "
+            f"{Path(got['library']).relative_to(site)} (nvcc built: "
+            f"{got['built']}, {got['build_s']:.1f} s); launches "
+            f"{got['launches']}; native transport {got['native']}, "
+            f"{got['delivered']} message(s) back; child {child_s:.1f} s wall")
+        require(all(under.values()), f"not from the site directory: {under}")
+        require(got["built"] and got["library_exists"],
+                "the installed copy did not build its kernels")
+        require(Path(got["library"]).parent == site / "build" / "kernels",
+                f"kernels built into {got['library']}")
+        require(got["launches"]["K1"] > 0 and got["launches"]["K3"] > 0,
+                f"installed copy launches {got['launches']}")
+        require(got["native"] and got["delivered"] == 1,
+                "the installed native transport did not carry the message")
+        mine = installed_esdf_run(args[0], tmp / "checkout", args[1])
+        require(Path(mine["file"]).resolve().is_relative_to(ROOT),
+                f"checkout run imported {mine['file']}")
+        require(mine["arrays"] == got["arrays"], "array names")
+        for name in got["arrays"]:
+            a = np.load(tmp / "child" / f"{name}.npy")
+            b = np.load(tmp / "checkout" / f"{name}.npy")
+            require(a.dtype == b.dtype and a.shape == b.shape
+                    and a.tobytes() == b.tobytes(),
+                    f"installed vs checkout: {name} differs")
+    log(f"[phase24] installed copy equal to the checkout bit for bit "
+        f"({', '.join(got['arrays'])}); phase {time.perf_counter() - t0:.1f} "
+        f"s wall ({smi})")
+    return got["launches"]
+
+
+# ---------------------------------------------------------------------------
 # phases 19-20: the multi-card compositions, several ranks on one card
 # ---------------------------------------------------------------------------
 
@@ -3455,11 +3642,7 @@ def main():
     from taichislam_tpu_torch.models.dense_esdf import DenseESDF
     before = (k1.segmented_block_reduce.launches,
               ks.esdf_sweep_loop.launches)
-    m = DenseESDF(map_scale=[10, 10], voxel_scale=0.05, max_ray_length=3.0,
-                  max_blocks=2048, max_bins=8192, max_submap_num=64,
-                  storage_dtype="float16", esdf_dense_max_voxels=0,
-                  max_esdf_sweeps=3, esdf_raise_slack_voxels=0.5,
-                  device=dev)
+    m = DenseESDF(**PHASE5_MAP, device=dev)
     m.set_dep_camera_intrinsic(K)
     for f in range(4):
         m.recast_depth_to_map(Rs[f], Ts[f], depth[f], None)
@@ -3521,6 +3704,10 @@ def main():
     t0 = time.perf_counter()
     tools_phase(smi)
     log(f"[phase23] took {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 24 --------------------------------------------------------
+    for k, v in installed_phase(smi, (depth, Rs, Ts, K)).items():
+        launches[k] += v
 
     src = "taichislam_tpu_torch/csrc/"
     table = [("seg_accum (K1)", "K1", src + "seg_accum.cu",

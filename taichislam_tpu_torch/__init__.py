@@ -5,3 +5,8 @@ opti/ utils/``); the hand-written Hopper kernels live in ``csrc/`` and are
 bound in ``ops/kernels/``. This package imports neither JAX nor
 ``taichislam_tpu``.
 """
+
+__version__ = "0.1.0"
+
+from taichislam_tpu_torch.core.config import (OctomapConfig,  # noqa: F401
+                                              TSDFConfig)

@@ -77,13 +77,15 @@ def _jet_lut(device) -> torch.Tensor:
 
 
 def color_from_colormap(z: torch.Tensor, min_z: float, max_z: float,
-                        reciprocal: bool = True) -> torch.Tensor:
-    """(..., 3) jet colors of ``clamp((z - min) / (max - min) * 1023)``.
+                        lut=None, reciprocal: bool = True) -> torch.Tensor:
+    """(..., 3) colors of ``clamp((z - min) / (max - min) * (n - 1))`` in
+    the (n, 3) ``lut``, the 1024-entry jet LUT by default.
 
     ``reciprocal`` divides by the range as the JAX package's jitted exports
     compute it (a multiply by the f32 reciprocal); ``False`` takes the true
     division of its eagerly run callers (``init_sphere``)."""
-    lut = _jet_lut(z.device)
+    lut = _jet_lut(z.device) if lut is None else torch.as_tensor(
+        lut, device=z.device)
     n = lut.shape[0]
     span = float(np.float32(max_z - min_z))
     if reciprocal:

@@ -39,6 +39,8 @@ from taichislam_tpu_torch.ops.kernels.esdf_sweep import (ENC_BIG,
                                                          esdf_sweep,
                                                          esdf_sweep_loop)
 
+BIG = 1e9  # the JAX package's jnp.float32(1e9); exact in float32
+
 # face-neighbour column ids in the (27, n) table: c = ((di+1)*3+(dj+1))*3+dk+1
 _C_IM, _C_IP = 4, 22
 _C_JM, _C_JP = 10, 16
@@ -88,11 +90,15 @@ def neighborhood_extrema(halo, op):
     return faces, edges, corners
 
 
-def neighbor_slot_cols(spec, state, rows):
-    """(27, n) storage slot of each listed block's 26 neighbours (+ itself),
+def neighbor_slot_cols(spec, state, active_submap, rows=None):
+    """(27, n) storage slot of each block's 26 neighbours (+ itself),
     column c = ((di+1)*3 + (dj+1))*3 + (dk+1); missing neighbours map to
-    the garbage slot."""
-    bc = state.block_coords[rows.long()]
+    the garbage slot. ``rows=None`` covers all ``max_blocks + 1`` storage
+    slots; a (k,) row-index tensor probes only those rows.
+    ``active_submap`` is unused, as in the JAX package."""
+    bc = state.block_coords
+    if rows is not None:
+        bc = bc[rows.long()]
     s, bi, bj, bk = bc[:, 0], bc[:, 1], bc[:, 2], bc[:, 3]
     base = s * spec.blocks_per_submap
     cols = []
@@ -110,16 +116,20 @@ def neighbor_slot_cols(spec, state, rows):
     return lookup_slots(spec, state.table, torch.stack(cols, dim=0))
 
 
-def neighbor_slot_table(spec, state, rows):
+def neighbor_slot_table(spec, state, active_submap, rows=None):
     """(n, 3, 3, 3) view of :func:`neighbor_slot_cols`."""
-    return neighbor_slot_cols(spec, state, rows).t().reshape(-1, 3, 3, 3)
+    cols = neighbor_slot_cols(spec, state, active_submap, rows=rows)
+    return cols.t().reshape(-1, 3, 3, 3)
 
 
-def assemble_halo(tiles, nslots, V, fill, center):
+def assemble_halo(tiles, nslots, V, fill, center=None):
     """(n, V+2, V+2, V+2) halos of ``n`` blocks: the interiors are
     ``center`` (n, V, V, V), the 26 boundary slabs are gathered from the
     full-size ``tiles`` (nb, V, V, V) through the (n, 3, 3, 3) neighbour
-    slot table ``nslots`` (the garbage row of ``tiles`` holds ``fill``)."""
+    slot table ``nslots`` (the garbage row of ``tiles`` holds ``fill``).
+    With ``center=None`` the interiors are ``tiles`` itself (n == nb)."""
+    if center is None:
+        center = tiles
     n = center.shape[0]
     halo = torch.full((n, V + 2, V + 2, V + 2), fill, dtype=tiles.dtype,
                       device=tiles.device)
@@ -304,7 +314,7 @@ def working_set(spec, state, active_submap: int, block_cap: int, NROWS: int,
         rows_d, keptD, totalD = _compact_rows(work_blk, cap, nb)
         rows_d = rows_d[:cap]
         validD = ar_cap < keptD
-        ns_d = neighbor_slot_cols(spec, state, rows_d)
+        ns_d = neighbor_slot_cols(spec, state, active_submap, rows=rows_d)
         ns_flat = torch.where(validD[None, :], ns_d, nb - 1)   # (27, cap)
         srt, _ = torch.sort(ns_flat.reshape(-1))
         head = (srt < nb - 1) & torch.cat(
@@ -331,7 +341,8 @@ def working_set(spec, state, active_submap: int, block_cap: int, NROWS: int,
     inv = torch.full((nb,), cap, dtype=torch.int32, device=dev)
     inv[slot_l] = torch.where(bvalid, ar_cap.to(torch.int32), cap)
 
-    nslots = inv[neighbor_slot_cols(spec, state, slot_of).long()]
+    nslots = inv[neighbor_slot_cols(spec, state, active_submap,
+                                    rows=slot_of).long()]
     nslots = torch.where(bvalid[None, :], nslots, cap)
     nslots = torch.cat([nslots, torch.full((27, NROWS - cap), cap,
                                            dtype=torch.int32, device=dev)],
@@ -424,18 +435,22 @@ def slab_rows(block_cap: int, n: int = 1) -> int:
 
 def esdf_update(cfg: TSDFConfig, max_sweeps: int, block_cap: int, state,
                 prev_esdf, prev_fixed, active_submap: int, dirty_blocks=None,
-                tsdf_src=None, obs_src=None):
+                _ablate: str = "", tsdf_src=None, obs_src=None):
     """ESDF over the active submap's observed voxels, block mode.
 
     Without ``dirty_blocks`` the working set is every active block; with it,
     the dirty blocks plus their 26-ring as a frozen (Dirichlet) rim.
     ``tsdf_src`` / ``obs_src`` replace the live channels as the seed source
-    (the consume-once snapshots of ``esdf_seed_dirty``).
+    (the consume-once snapshots of ``esdf_seed_dirty``). ``_ablate`` holds
+    the JAX signature's place; the JAX package's ablations skip work for
+    TPU profiling, the port has none, and any value but ``""`` raises.
 
     Returns (esdf, fixed, observed_mask, sweeps_run, changed_blocks,
     block_cap_overflow); ``esdf`` and ``fixed`` are ``prev_esdf`` and
     ``prev_fixed`` updated in place. Counts are 0-d int32 tensors.
     """
+    if _ablate:
+        raise ValueError(f"no ablation {_ablate!r} in the port")
     spec = cfg.grid
     V = spec.V
     nb = spec.max_blocks + 1
@@ -674,7 +689,6 @@ def esdf_update_dense(cfg: TSDFConfig, max_sweeps: int, dims_blocks, state,
     eps = float(f32(max(cfg.esdf_raise_slack_voxels * cfg.voxel_scale,
                         1e-4)))
     eps_conv = float(f32(cfg.esdf_converge_eps))
-    BIGF = 1e9
 
     c4 = state.block_coords
     blk = state.block_active & (c4[:, 0] == int(active_submap))
@@ -748,17 +762,17 @@ def esdf_update_dense(cfg: TSDFConfig, max_sweeps: int, dims_blocks, state,
     brk_hi = ~neg_src | fixed
 
     def sweep(esdf):
-        lo = torch.where(pos_src, esdf, BIGF)
-        hi = torch.where(neg_src, esdf, -BIGF)
-        fl, el, cl = _dense_extrema(lo, torch.minimum, BIGF)
-        fh, eh, ch = _dense_extrema(hi, torch.maximum, -BIGF)
+        lo = torch.where(pos_src, esdf, BIG)
+        hi = torch.where(neg_src, esdf, -BIG)
+        fl, el, cl = _dense_extrema(lo, torch.minimum, BIG)
+        fh, eh, ch = _dense_extrema(hi, torch.maximum, -BIG)
         cand_lo = torch.minimum(torch.minimum(fl + v1, el + v2), cl + v3c)
         cand_hi = torch.maximum(torch.maximum(fh - v1, eh - v2), ch - v3c)
         cand_lo = torch.minimum(cand_lo,
-                                _dense_scan_candidates(lo, brk_lo, v1, BIGF))
+                                _dense_scan_candidates(lo, brk_lo, v1, BIG))
         cand_hi = torch.maximum(cand_hi,
                                 -_dense_scan_candidates(-hi, brk_hi, v1,
-                                                        BIGF))
+                                                        BIG))
         new = torch.where(cand_lo <= esdf + eps, torch.minimum(esdf, cand_lo),
                           torch.clamp(cand_lo, max=max_ray))
         new = torch.where(pos_side, new, esdf)

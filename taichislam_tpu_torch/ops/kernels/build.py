@@ -2,11 +2,13 @@
 
 Every ``csrc/*.cu`` file compiles to an object with its own nvcc, all
 started together, and the objects link into one shared library with a
-plain C interface, at first use, into ``build/kernels/`` at the repository
-root (listed in ``.gitignore``). The file name carries a hash of the
-sources and flags, so an edited source builds anew. Nothing here runs at
-import. :func:`count` keeps the wrappers' launch counters true under CUDA
-graph capture and replay.
+plain C interface, at first use, into ``build/kernels/`` beside the
+package: at the repository root in a checkout (listed in ``.gitignore``),
+in ``<site-packages>/build/kernels/`` in an installed copy, which must be
+writable. The file name carries a hash of the sources and flags, so an
+edited source builds anew. Nothing here runs at import. :func:`count`
+keeps the wrappers' launch counters true under CUDA graph capture and
+replay.
 """
 
 from __future__ import annotations

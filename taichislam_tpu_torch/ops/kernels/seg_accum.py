@@ -169,7 +169,7 @@ def _workspace_bytes(N, n, n_vals, key_bytes, passes, max_touched):
 
 
 def segmented_block_reduce(bkey, intra, vals: Sequence[torch.Tensor],
-                           V3: int, max_touched: int,
+                           V3: int, max_touched: int, *,
                            lane_cap: int | None = None,
                            presorted: bool = False, vals_f16: bool = False,
                            max_bkey: int | None = None,

@@ -139,9 +139,7 @@ def dilate_blocks(cfg: TSDFConfig, state, active_submap: int, bitmap):
     dev = bitmap.device
     src = bitmap.clone()
     src[-1] = False
-    cols = neighbor_slot_cols(cfg.grid, state,
-                              torch.arange(nb, dtype=torch.int32,
-                                           device=dev))      # (27, nb)
+    cols = neighbor_slot_cols(cfg.grid, state, active_submap)   # (27, nb)
     tgt = torch.where(src[None, :], cols, nb - 1).reshape(-1).long()
     out = torch.zeros((nb,), dtype=torch.bool, device=dev)
     out[tgt] = True
@@ -195,7 +193,8 @@ def extract_mesh(cfg: TSDFConfig, max_triangles: int, step: int,
 
     # ---- corner sampling --------------------------------------------------
     if step == 1:
-        nsl = neighbor_slot_table(spec, state, slot_of)           # (cap,3,3,3)
+        nsl = neighbor_slot_table(spec, state, s_id,
+                                  rows=slot_of)                   # (cap,3,3,3)
         nsl = torch.where(bvalid[:, None, None, None], nsl, nb - 1)
 
         def halo(src, fill):

@@ -104,9 +104,11 @@ def depth_to_points(cfg: TSDFConfig, depth_mm, texture, K_dep, K_color):
     return torch.stack([px, py, pz], dim=-1), dep, color, valid
 
 
-def pcl_to_points(cfg: TSDFConfig, xyz: torch.Tensor, rgb: torch.Tensor):
+def pcl_to_points(cfg: TSDFConfig, xyz_array: torch.Tensor,
+                  rgb_array: torch.Tensor):
     """Point-cloud input: f32 points, and f32 colors when textured."""
-    return xyz.float(), (rgb.float() if cfg.texture_enabled else None)
+    return xyz_array.float(), (rgb_array.float() if cfg.texture_enabled
+                               else None)
 
 
 class Bins(NamedTuple):

@@ -33,10 +33,11 @@ from taichislam_tpu_torch.ops import tsdf as tsdf_ops
 from taichislam_tpu_torch.parallel.mesh import Mesh
 
 
-def make_drone_states(cfg: TSDFConfig, device=None) -> GridState:
+def make_drone_states(cfg: TSDFConfig, *, device=None) -> GridState:
     """This rank's drone's submap-collection state (the JAX function
-    stacks one per drone on a leading axis; rank ``r`` holds drone
-    ``r``), on ``device`` (the CUDA card unless given)."""
+    stacks ``n_drones`` on a leading axis; rank ``r`` holds drone
+    ``r``), on ``device`` (the CUDA card unless given). ``device`` is
+    keyword-only, so that a call in JAX's form raises."""
     return tsdf_ops.make_tsdf_state(cfg, device=device)
 
 
@@ -78,7 +79,7 @@ def multi_drone_step(sub_cfg: TSDFConfig, glob_cfg: TSDFConfig,
 # lifecycle-composed SPMD step (the in-graph SubmapMapping)
 # ---------------------------------------------------------------------------
 
-def make_lifecycle_states(sub_cfg: TSDFConfig, with_esdf: bool = False,
+def make_lifecycle_states(sub_cfg: TSDFConfig, *, with_esdf: bool = False,
                           device=None) -> dict:
     """This rank's drone's lifecycle state: its submap-collection grid
     ``state``, the ``active`` submap id and ``fcount`` frame count (ints),
@@ -86,7 +87,9 @@ def make_lifecycle_states(sub_cfg: TSDFConfig, with_esdf: bool = False,
     f32 numpy arrays, kept on the host as ``SubmapMapping`` keeps them.
     With ``with_esdf`` also the drone's distance field: ``esdf`` /
     ``fixed`` full-map tensors, the ``pending`` re-queue bitmap chaining
-    wavefronts across frames, and ``esdf_stats`` (sweeps run, overflow)."""
+    wavefronts across frames, and ``esdf_stats`` (sweeps run, overflow).
+    The options are keyword-only, so that a call in JAX's form, which
+    passes ``n_drones`` second, raises."""
     S = sub_cfg.max_submap_num
     state = make_drone_states(sub_cfg, device=device)
     dev = state.table.device

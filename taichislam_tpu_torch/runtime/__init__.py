@@ -4,12 +4,14 @@ Counterpart of the JAX package's ``runtime/__init__.py``.
 ``NativeUDPMulticastTransport`` wraps ``transport.cpp`` beside this file: an
 LCM-UDPM-wire-compatible multicast transport with a background receive
 thread (the role the native LCM C library plays for TaichiSLAM). At first
-use ``g++`` builds it into ``build/runtime/`` at the repository root (listed
-in ``.gitignore``), never into the package; the file name carries a hash of
-the source and flags, so an edited source builds anew. ``native_available()``
-reports whether the library built and loaded; callers then fall back to the
-pure-Python transport (host networking, as in the JAX package). Nothing here
-runs at import.
+use ``g++`` builds it into ``build/runtime/`` beside the package, never into
+it: at the repository root in a checkout (listed in ``.gitignore``), in
+``<site-packages>/build/runtime/`` in an installed copy, which must be
+writable. The file name carries a hash of the source and flags, so an
+edited source builds anew. ``native_available()`` reports whether the
+library built and loaded; callers then fall back to the pure-Python
+transport (host networking, as in the JAX package). Nothing here runs at
+import.
 """
 
 from __future__ import annotations

@@ -3,7 +3,8 @@
 
 Counterpart of the repository's ``tools/gen_fixtures.py``, over the port's
 own scene generator and map. It writes, under ``build/fixtures/`` at the
-root of the checkout (ignored by git):
+root of the checkout (ignored by git; ``<site-packages>/build/fixtures/``
+in an installed copy):
 
   d435_synth_seq_<n>.npz   a D435-like depth sequence: the office orbit of
                            ``utils/synthetic_scene.py`` (depth u16

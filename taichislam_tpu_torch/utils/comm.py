@@ -213,8 +213,10 @@ class LoopbackTransport:
 
 def make_udpm_transport(url: str = "udpm://224.0.0.251:7667?ttl=1"):
     """Prefer the native C++ transport (taichislam_tpu_torch/runtime, built
-    with g++ at first use); fall back to the pure-Python socket
-    implementation when it does not build or load."""
+    with g++ at first use from the package's ``transport.cpp`` into
+    ``build/runtime/`` beside the package); fall back to the pure-Python
+    socket implementation when it does not build or load, as the JAX
+    package does."""
     try:
         from taichislam_tpu_torch.runtime import (
             NativeUDPMulticastTransport, native_available)

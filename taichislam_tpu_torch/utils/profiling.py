@@ -9,8 +9,9 @@ that print contract and adds:
   per-frame report;
 - ``trace(name)``: ``torch.profiler.record_function`` around a host stage
   (it shows in a ``torch.profiler`` capture);
-- ``device_trace(path)``: a ``torch.profiler.profile`` over the CPU and, when
-  a card is present, CUDA, written to ``path`` as a Chrome trace.
+- ``device_trace(log_dir)``: a ``torch.profiler.profile`` over the CPU and,
+  when a card is present, CUDA, written as the Chrome trace
+  ``<log_dir>/trace.json`` (``jax.profiler`` writes under its ``log_dir``).
 
 Timings of device work are only meaningful when the card has finished it:
 ``StageTimer.stop(..., sync=t)`` synchronises the CUDA device of tensor
@@ -20,6 +21,7 @@ Timings of device work are only meaningful when the card has finished it:
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from typing import Dict
 
@@ -70,14 +72,16 @@ def trace(name: str):
 
 
 @contextlib.contextmanager
-def device_trace(path: str):
+def device_trace(log_dir: str):
     """Profile the CPU and the CUDA card (when present) and write a Chrome
-    trace to ``path`` (open it in chrome://tracing or Perfetto)."""
+    trace to ``<log_dir>/trace.json``, creating ``log_dir`` if missing
+    (open it in chrome://tracing or Perfetto)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
     with profile(activities=acts) as prof:
         yield
-    prof.export_chrome_trace(str(path))
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

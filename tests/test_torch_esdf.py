@@ -181,7 +181,8 @@ def test_working_set_helpers_match_jax(slope):
     rows[-3:] = SHAPE[0] - 1
     want = np.asarray(je.neighbor_slot_cols(spec, state, jnp.int32(0),
                                             rows=jnp.asarray(rows)))
-    got = te.neighbor_slot_cols(TCFG.grid, ps, torch.from_numpy(rows))
+    got = te.neighbor_slot_cols(TCFG.grid, ps, 0,
+                                rows=torch.from_numpy(rows))
     np.testing.assert_array_equal(want, got.numpy())
     bvalid = np.arange(len(rows)) < nb
     w = je.morton_order_rows(jnp.asarray(rows), jnp.asarray(bvalid),
@@ -206,6 +207,81 @@ def test_working_set_helpers_match_jax(slope):
         te._from_sweep_layout(Ht, V).numpy())
     np.testing.assert_array_equal(je._shell_mask_np(V),
                                   te._shell_mask(V, torch.device("cpu")))
+
+
+@pytest.mark.parametrize("with_rows", [False, True])
+@pytest.mark.parametrize("name", ["neighbor_slot_cols", "neighbor_slot_table"])
+def test_neighbor_slots_jax_call_form(slope, name, with_rows):
+    """Both packages called as ``f(spec, state, active_submap, rows=None)``:
+    ``rows=None`` covers every storage slot; the submap id is unused."""
+    state = slope[0]
+    ps = bridge.grid_state_from_numpy(state, device="cpu")
+    rows = np.random.default_rng(5).integers(0, SHAPE[0], 40).astype(
+        np.int32)
+    jkw = dict(rows=jnp.asarray(rows)) if with_rows else {}
+    tkw = dict(rows=torch.from_numpy(rows)) if with_rows else {}
+    want = np.asarray(getattr(je, name)(JCFG.grid, state, jnp.int32(3),
+                                        **jkw))
+    got = getattr(te, name)(TCFG.grid, ps, 3, **tkw).numpy()
+    assert got.dtype == np.int32 and want.dtype == np.int32
+    np.testing.assert_array_equal(want, got)
+    n = got.shape[-1] if name.endswith("cols") else got.shape[0]
+    assert n == (len(rows) if with_rows else SHAPE[0])
+
+
+def test_assemble_halo_center_none_matches_jax(slope):
+    """``center=None``: the interiors are ``tiles`` itself (n == nb)."""
+    state = slope[0]
+    V = 8
+    nsl = je.neighbor_slot_table(JCFG.grid, state, jnp.int32(0))
+    tiles = np.random.default_rng(6).standard_normal(
+        (SHAPE[0], V, V, V)).astype(np.float32)
+    tiles[-1] = 5.0
+    want = je.assemble_halo(jnp.asarray(tiles), nsl, V, 5.0)
+    got = te.assemble_halo(torch.from_numpy(tiles),
+                           torch.from_numpy(np.array(nsl)), V, 5.0)
+    assert got.shape == (SHAPE[0], V + 2, V + 2, V + 2)
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
+def test_esdf_update_jax_positional_form(slope):
+    """JAX's positional order (``dirty_blocks, _ablate, tsdf_src,
+    obs_src``) on both sides: the port's positional call holds to JAX's
+    as ``_compare_update`` does (exact flags, participation, sweeps,
+    re-queue; field 1e-6) and to its own keyword call bit for bit; an
+    ablation raises."""
+    state, stats = slope
+    touched = np.asarray(stats["touched_blocks"])
+    _, seen_t, seen_o = je.esdf_seed_dirty(
+        JCFG, state, jnp.zeros(SHAPE, jnp.float32), jnp.zeros(SHAPE, bool),
+        jnp.asarray(touched))
+    want = je.esdf_update(JCFG, 3, CAP, state, *_zeros(), jnp.int32(0),
+                          jnp.asarray(touched), "", seen_t, seen_o)
+    ps = bridge.grid_state_from_numpy(state, device="cpu")
+    dirty = torch.from_numpy(touched.copy())
+    src = (torch.from_numpy(np.array(seen_t)), torch.from_numpy(
+        np.array(seen_o)))
+
+    def zeros():
+        return (torch.zeros(SHAPE, dtype=torch.float32),
+                torch.zeros(SHAPE, dtype=torch.int8))
+
+    pos = te.esdf_update(TCFG, 3, CAP, ps, *zeros(), 0, dirty, "", *src)
+    we, wf, wp, ws, wc, wo = (np.asarray(a) for a in want)
+    ge, gf, gp, gs, gc, go = (a.numpy() for a in pos)
+    assert int(ws) == int(gs) and int(wo) == int(go)
+    np.testing.assert_array_equal(wp, gp)
+    np.testing.assert_array_equal(wf, gf)
+    np.testing.assert_array_equal(wc, gc)
+    err = np.abs(np.where(wp, we - ge, 0.0)).max()
+    assert err <= 1e-6, f"field max abs err {err}"
+    assert wp.any()
+    kw = te.esdf_update(TCFG, 3, CAP, ps, *zeros(), 0, dirty,
+                        tsdf_src=src[0], obs_src=src[1])
+    for a, b in zip(pos, kw):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        te.esdf_update(TCFG, 3, CAP, ps, *zeros(), 0, dirty, "ws", *src)
 
 
 @pytest.mark.parametrize("V", [8, 16, 24])

@@ -13,6 +13,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+from tests import test_torch_api as api
+
 ROOT = Path(__file__).resolve().parents[1]
 
 SCRIPT = r"""
@@ -107,6 +109,48 @@ def test_port_imports_no_jax():
                  "taichislam_tpu_torch.ops.kernels.seg_accum",
                  "taichislam_tpu_torch.ops.kernels.esdf_sweep"):
         assert name in imported, name
+
+
+PACKAGES_ALONE = r"""
+want = json.loads(sys.argv[1])
+out = {"missing": {}, "bad": []}
+for pkg, names in want.items():
+    # each package alone: a sibling's import must not bind its names
+    for m in [m for m in sys.modules if m.startswith("taichislam_tpu_torch")]:
+        del sys.modules[m]
+    mod = importlib.import_module(pkg)
+    lack = sorted(n for n in names if not hasattr(mod, n))
+    if lack:
+        out["missing"][pkg] = lack
+    out["bad"] += [m for m in sys.modules
+                   if "ros_node" in m or m.split(".")[0] in REFUSED]
+import torch
+out["cuda_initialized"] = torch.cuda.is_initialized()
+print(json.dumps(out))
+"""
+
+
+def test_reexported_names_import_without_jax():
+    """The JAX package's import forms with the port's package name: each
+    port package, imported alone in an interpreter that refuses the JAX
+    package, binds every name its JAX counterpart's ``__init__`` binds,
+    imports no rospy shell (node/ros_node.py) and starts no CUDA."""
+    want = {api.port_module_name(rel): sorted(
+        n for n in api.bound_names(api._parse(api.JAX_PKG / rel))
+        if not n.startswith("_") or n == "__version__")
+        for rel in api.JAX_INITS}
+    for pkg, names in (("models", {"DenseESDF", "DenseTSDF"}),
+                       ("core", {"GridSpec", "TSDFConfig"}),
+                       ("node", {"TaichiSLAMNodeCore"}),
+                       ("ops", {"tsdf"})):
+        assert names <= set(want["taichislam_tpu_torch." + pkg]), pkg
+    probe = SCRIPT.split("import taichislam_tpu_torch")[0] + PACKAGES_ALONE
+    res = subprocess.run([sys.executable, "-c", probe, json.dumps(want)],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out == {"missing": {}, "bad": [], "cuda_initialized": False}
 
 
 def test_refusal_is_effective():

@@ -135,6 +135,44 @@ def test_color_from_colormap_exact(jitted):
     np.testing.assert_allclose(want, got, atol=1e-6)
 
 
+@pytest.mark.parametrize("jitted", [True, False])
+def test_color_from_colormap_custom_lut(jitted):
+    """A given (n, 3) LUT replaces jet, and its length sets the scale
+    ``n - 1``: both packages called as ``f(z, min, max, lut)``."""
+    rng = np.random.default_rng(4)
+    z = rng.uniform(-1.3, 1.6, 20000).astype(np.float32)
+    lut = rng.uniform(0, 1, (256, 3)).astype(np.float32)
+    fn = jcm.color_from_colormap
+    if jitted:
+        fn = jax.jit(fn, static_argnums=(1, 2))
+    want = np.asarray(fn(jnp.asarray(z), -1.0, 1.25, jnp.asarray(lut)))
+    got = tcm.color_from_colormap(torch.from_numpy(z), -1.0, 1.25,
+                                  torch.from_numpy(lut),
+                                  reciprocal=jitted).numpy()
+    assert got.shape == (len(z), 3)
+    np.testing.assert_allclose(want, got, atol=1e-6)
+
+
+@pytest.mark.parametrize("textured", [False, True])
+def test_pcl_to_points_by_jax_keywords(textured):
+    cj = JConfig(**dict(BASE, texture_enabled=textured))
+    ct = TConfig(**dict(BASE, texture_enabled=textured))
+    rng = np.random.default_rng(5)
+    xyz = rng.uniform(-2, 2, (50, 3))
+    rgb = rng.integers(0, 256, (50, 3)).astype(np.uint8)
+    wp, wc = jt.pcl_to_points(cj, xyz_array=jnp.asarray(xyz, jnp.float32),
+                              rgb_array=jnp.asarray(rgb))
+    gp, gc = tt.pcl_to_points(ct, xyz_array=torch.from_numpy(xyz).float(),
+                              rgb_array=torch.from_numpy(rgb))
+    np.testing.assert_array_equal(np.asarray(wp), gp.numpy())
+    assert gp.dtype == torch.float32
+    if textured:
+        assert gc.dtype == torch.float32
+        np.testing.assert_array_equal(np.asarray(wc), gc.numpy())
+    else:
+        assert wc is None and gc is None
+
+
 def test_textured_integrate_pcl_matches_jax():
     cj, ct = JConfig(pallas_accum="on", **BASE), TConfig(**BASE)
     rng = np.random.default_rng(3)

@@ -318,12 +318,14 @@ def test_stage_timer_report_and_ema(monkeypatch):
 
 
 def test_trace_and_device_trace(tmp_path):
-    """trace() is a torch.profiler annotation; device_trace() writes a
-    Chrome trace holding it."""
-    path = tmp_path / "trace.json"
-    with profiling.device_trace(str(path)):
+    """trace() is a torch.profiler annotation; device_trace(log_dir), as
+    JAX's takes a directory, creates it and writes a Chrome trace holding
+    it inside."""
+    log_dir = tmp_path / "profile"
+    with profiling.device_trace(str(log_dir)):
         with profiling.trace("node_stage"):
             torch.ones(8).sum()
+    [path] = list(log_dir.iterdir())
     names = {e.get("name") for e in json.loads(path.read_text())[
         "traceEvents"]}
     assert "node_stage" in names

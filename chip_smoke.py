@@ -147,7 +147,19 @@ Phases:
      K3 from the installed csrc/ into <site>/build/kernels/, phase 5's
      DenseESDF runs its 4 frames with both launched, and the native
      transport builds and carries one message over loopback multicast;
-     the same run from the checkout gives the same map bit for bit.
+     the same run from the checkout gives the same map bit for bit;
+ 25. the node's per-call units (ops/graphs.py) as graph replays against
+     their eager bodies: phase 6's node-default path (16 frames, the
+     ray-bin bucket held at phase 6's) once through the replays and once
+     through the units' *_ref bodies, every frame's ESDF mode, sweeps,
+     mesh and exports and the final map, ESDF, fixed and observed flags
+     equal bit for bit; ms/frame per stage for both (window / dense recast
+     apart from block recast), the units' captures, capture ms, replays
+     and eager first calls, the K1 / K3 launches the replays added, and one
+     profiled frame each (CUDA kernels, idle share); then phase 15's
+     TaichiSLAMNodeCore both ways, its published clouds, mesh and map bit
+     for bit, with process_taichi ms. Phases 3-24 run through the same
+     units (their ops are called by name).
 
 Exits non-zero without a result when no CUDA device is present. The last
 line is {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -911,12 +923,14 @@ def hold_bins(m, floor):
     m._bin_bucket = floor
 
 
-def node_run(dev, frames, texs, map_kw, n, bin_floor=None):
+def node_run(dev, frames, texs, map_kw, n, bin_floor=None, keep=None):
     """Drive the node's per-frame loop for ``n`` frames. The model adapts
     its ray-bin bucket to each frame's load, so a frame whose load rises
     past the bucket drops bins; ``bin_floor`` (the largest bucket a sizing
-    pass needed) holds the bucket at or above it. Returns (model, mesher,
-    per-frame records, per-frame stage ms)."""
+    pass needed) holds the bucket at or above it. With ``keep`` (a list)
+    each frame appends the digest of its mesh and exports, taken after the
+    frame's last mark. Returns (model, mesher, per-frame records,
+    per-frame stage ms)."""
     from taichislam_tpu_torch.models.dense_esdf import DenseESDF
     from taichislam_tpu_torch.models.mesher import MarchingCubeMesher
     depth, Rs, Ts = frames
@@ -936,9 +950,16 @@ def node_run(dev, frames, texs, map_kw, n, bin_floor=None):
         t.mark()
         m.cvt_TSDF_surface_to_voxels()
         t.mark()
+        surface = (m.export_TSDF_xyz, m.export_color, m.export_TSDF)
         m.cvt_ESDF_to_voxels_slice(0.0)
         t.mark()
         stage_ms.append(t.ms())
+        if keep is not None:
+            nv = mesher.num_facelets * 3
+            keep.append(digest(
+                *surface, m.export_ESDF_xyz, m.export_ESDF, m.export_color,
+                mesher.mesh_vertices[:nv], mesher.mesh_normals[:nv],
+                mesher.mesh_colors[:nv]))
         st = m.last_stats
         drops = {k: int(st[k]) for k in DROP_KEYS if int(st[k])}
         recs.append(dict(
@@ -950,12 +971,21 @@ def node_run(dev, frames, texs, map_kw, n, bin_floor=None):
     return m, mesher, recs, np.array(stage_ms)
 
 
+def digest(*arrays):
+    """SHA-1 of the arrays' bytes, for bit-for-bit comparisons."""
+    import hashlib
+    h = hashlib.sha1()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
 def node_phase(dev, smi, frames, texs, launches):
     """Phase 6: the node path at the node's defaults, 16 frames; a first
     untimed pass finds the largest ray-bin bucket the frames need (and
     warms the allocator), the measured pass holds the bucket there.
-    Returns the map, its saveMap file (kept for phases 11-12) and that
-    file loaded on the card."""
+    Returns the map, its saveMap file (kept for phases 11-12), that file
+    loaded on the card and the bucket (phase 25 holds it too)."""
     import torch
     from taichislam_tpu_torch.models.dense_tsdf import DenseTSDF
     from taichislam_tpu_torch.ops.kernels import esdf_sweep as ks
@@ -1011,7 +1041,7 @@ def node_phase(dev, smi, frames, texs, launches):
     n_act, n_load = m.count_active(), loaded.count_active()
     require(n_act == n_load > 0, f"saveMap/loadMap: {n_act} vs {n_load}")
     log(f"[phase6] saveMap -> loadMap: {n_load} active voxels both")
-    return m, loaded, path
+    return m, loaded, path, floor
 
 
 def node_profile(dev, frames, texs, bin_floor, n=4):
@@ -2722,7 +2752,7 @@ def bench_phase(dev, smi, launches, eager_ms):
         f"bit (float16 TSDF and W, flags, ESDF, fixed, pending, snapshots); "
         f"eager {ms_ref / n:.3f} ms/frame (launches per frame K1 "
         f"{got_e['K1'] / n:.2f} K3 {got_e['K3'] / n:.2f}) against the graph's "
-        f"{prim['ms_per_frame']:.3f}; phase 3's eager per-frame loop, same "
+        f"{prim['ms_per_frame']:.3f}; phase 3's per-frame loop, same "
         f"configuration, {eager_ms:.3f} ms/frame in this call ({smi})")
     del ref
 
@@ -3531,6 +3561,205 @@ def drones_phase(dev, smi, frames, launches):
         f"{[round(o['peak'] / 2**20, 1) for o in res]} MiB ({smi})")
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the node's per-call units, graph replays against eager bodies
+# ---------------------------------------------------------------------------
+
+# the node path's units (ops/graphs.py): module and public name; the eager
+# body of each is the name with "_ref"
+NODE_UNITS = (("ops.tsdf", "integrate_depth"), ("ops.tsdf", "integrate_pcl"),
+              ("ops.esdf", "esdf_seed_dirty"), ("ops.esdf", "esdf_update"),
+              ("ops.esdf", "esdf_update_dense"),
+              ("ops.esdf", "esdf_slice_export"),
+              ("ops.exports", "tsdf_surface_export"),
+              ("ops.marching_cubes", "dilate_blocks"),
+              ("ops.marching_cubes", "extract_mesh"))
+
+
+@contextlib.contextmanager
+def eager_units():
+    """Run the node path's units through their eager ``*_ref`` bodies
+    instead of their graph replays (the models call the modules'
+    functions by name)."""
+    import importlib
+    saved = []
+    for mod, name in NODE_UNITS:
+        m = importlib.import_module("taichislam_tpu_torch." + mod)
+        saved.append((m, name, getattr(m, name)))
+        setattr(m, name, getattr(m, name + "_ref"))
+    try:
+        yield
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+
+
+def unit_counts():
+    """Per unit (captures, capture ms, replays, eager first calls) and the
+    K1 / K2 / K3 launches the replays of its live graphs added."""
+    from taichislam_tpu_torch.ops import graphs
+    from taichislam_tpu_torch.ops.kernels import esdf_sweep as ks
+    from taichislam_tpu_torch.ops.kernels import seg_accum as k1
+    fns = {"K1": k1.segmented_block_reduce, "K2": ks.esdf_sweep,
+           "K3": ks.esdf_sweep_loop}
+    out = {}
+    for name, cache in graphs.UNITS.items():
+        kern = dict.fromkeys(fns, 0)
+        for e in list(cache.entries.values()):
+            for g in e.graphs.values():
+                for k, fn in fns.items():
+                    kern[k] += g.replays * sum(1 for f, _ in g.tally
+                                               if f is fn)
+        c = graphs.counts()[name]
+        if any(c[i] for i in (0, 2, 3)):
+            out[name] = dict(captures=c[0], capture_ms=round(c[1], 1),
+                             replays=c[2], eager=c[3],
+                             **{k: v for k, v in kern.items() if v})
+    return out
+
+
+def node_frame(m, mesher, frames, texs, f):
+    depth, Rs, Ts = frames
+    m.recast_depth_to_map(Rs[f], Ts[f], depth[f], texs[f])
+    mesher.generate_mesh(1)
+    m.cvt_TSDF_surface_to_voxels()
+    m.cvt_ESDF_to_voxels_slice(0.0)
+
+
+def stage_summary(tag, recs, ms, smi):
+    """ms/frame per stage, and the recast of window / dense frames apart
+    from block frames."""
+    per = ms.mean(0)
+    modes = [r["mode"] for r in recs]
+    dense = ms[[md != "block" for md in modes], 0]
+    block = ms[[md == "block" for md in modes], 0]
+
+    def mean(x):
+        return f"{x.mean():.3f} ({len(x)} frames)" if len(x) else "none"
+    log(f"[phase25] {tag}: ms/frame recast {per[0]:.3f} mesh {per[1]:.3f} "
+        f"surface {per[2]:.3f} slice {per[3]:.3f} total {per.sum():.3f}; "
+        f"recast of window/dense frames {mean(dense)}, of block frames "
+        f"{mean(block)}; per frame recast {np.round(ms[:, 0], 3).tolist()} "
+        f"mesh {np.round(ms[:, 1], 3).tolist()} surface "
+        f"{np.round(ms[:, 2], 3).tolist()} slice "
+        f"{np.round(ms[:, 3], 3).tolist()} ({smi})")
+
+
+def node_graphs_phase(dev, smi, frames, texs, floor, launches):
+    """Phase 25: phase 6's node path (textured DenseESDF, 100 x 10 m at
+    5 cm, D435 cameras, mesher, 16 frames, the ray-bin bucket held at
+    phase 6's ``floor``) once through the units' graph replays and once
+    through their eager bodies: every frame's mode, sweeps, dirty count,
+    mesh and exports and the final map, ESDF, fixed and observed flags
+    equal bit for bit; per-stage ms of both, the units' captures and
+    replays, the K1 / K3 launches the replays added, and one profiled
+    frame of each (CUDA kernels, idle share). Then phase 15's
+    TaichiSLAMNodeCore the same two ways: its published clouds, mesh and
+    map bit for bit, process_taichi ms."""
+    import torch
+    from taichislam_tpu_torch.ops import graphs
+    from taichislam_tpu_torch.utils.viewer_server import InteractiveRender
+    graphs.clear()
+    runs = {}
+    for how in ("graph", "eager"):
+        graphs.reset_counts()
+        counters = reset_counts()
+        keep = []
+        with (eager_units() if how == "eager" else contextlib.nullcontext()):
+            m, mesher, recs, ms = node_run(dev, frames, texs, NODE_MAP,
+                                           N_FRAMES, bin_floor=floor,
+                                           keep=keep)
+        torch.cuda.synchronize()
+        got, _ = read_counts(counters, launches)
+        runs[how] = (m, mesher, recs, ms, keep, got, unit_counts())
+        log(f"[phase25] {how}: launches {got}")
+        stage_summary(how, recs, ms, smi)
+    (gm, gmesh, grec, gms, gkeep, ggot, gunits) = runs["graph"]
+    (em, emesh, erec, ems, ekeep, _, eunits) = runs["eager"]
+    require(not eunits, f"eager run went through graphs: {eunits}")
+    log(f"[phase25] units of the graph run (captures, capture ms, replays, "
+        f"eager first calls; K1 / K3 launches the replays added): {gunits}")
+    for key in ("mode", "sweeps", "dirty", "tris", "surface", "slice",
+                "drops"):
+        require([r[key] for r in grec] == [r[key] for r in erec],
+                f"node graphs vs eager: {key} {[r[key] for r in grec]} vs "
+                f"{[r[key] for r in erec]}")
+    differ = [f for f, (a, b) in enumerate(zip(gkeep, ekeep)) if a != b]
+    require(len(gkeep) == len(ekeep) == N_FRAMES and not differ,
+            f"node graphs vs eager: mesh / exports differ at frames {differ}")
+    maps_bit_equal(gm, em, "node graphs vs eager")
+    require(max(r["drops"] for r in grec) == 0, "node graphs: drops")
+    k1r = sum(u.get("K1", 0) for u in gunits.values())
+    k3r = sum(u.get("K3", 0) for u in gunits.values())
+    require(k1r > 0 and k3r > 0, f"K1 / K3 not launched by replays: "
+            f"{gunits}")
+    require(gunits["integrate_depth"]["replays"] > 0 and
+            gunits["esdf_seed_dirty"]["replays"] > 0,
+            "integrate / seed never replayed")
+    log(f"[phase25] graph run == eager run bit for bit over {N_FRAMES} "
+        f"frames (modes {[r['mode'] for r in grec]}, sweeps "
+        f"{[r['sweeps'] for r in grec]}); replays added K1 {k1r} K3 {k3r} "
+        f"launches ({k1r / N_FRAMES:.2f} / {k3r / N_FRAMES:.2f} a frame)")
+
+    # one more frame of each, profiled: every graph key is warm
+    depth, Rs, Ts = frames
+    for how, m, mesher in (("graph", gm, gmesh), ("eager", em, emesh)):
+        def run():
+            node_frame(m, mesher, frames, texs, N_FRAMES - 1)
+        with (eager_units() if how == "eager" else contextlib.nullcontext()):
+            kpf, busy, wall, by_name, top = profile_frames(
+                run, 1, f"node_{how}_profile.txt")
+        log(f"[phase25] profiled {how} frame: {kpf:.0f} CUDA kernels, "
+            f"device busy {busy:.3f} of {wall:.3f} ms (idle share "
+            f"{1 - busy / wall:.3f}); top device ms {top} ({smi})")
+    del gm, gmesh, em, emesh, runs
+    graphs.clear()
+
+    # phase 15's node core, both ways
+    cores = {}
+    for how in ("graph", "eager"):
+        graphs.reset_counts()
+        with (eager_units() if how == "eager" else contextlib.nullcontext()):
+            render = InteractiveRender(port=0, announce=False)
+            core, pub = make_node(dev, NODE_CORE_PARAMS, keep=True,
+                                  render=render)
+            m = core.mapping
+            hold_bins(m, node_bin_floor(dev, core, frames, texs, N_FRAMES,
+                                        core.get_sdf_opts()))
+            ms = []
+            for f in range(N_FRAMES):
+                frame, msg = node_messages(frames, f)
+                core.stage_depth(frame, msg, texs[f])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                core.process_taichi()
+                torch.cuda.synchronize()
+                ms.append(1000 * (time.perf_counter() - t0))
+                core.rendering()
+            render.close()
+        nv = core.mesher.num_facelets * 3
+        cores[how] = (core, [digest(*p[2:]) for p in pub],
+                      digest(core.mesher.mesh_vertices[:nv],
+                             core.mesher.mesh_colors[:nv]),
+                      np.array(ms), unit_counts())
+    (gc_, gpub, gmesh_d, gms, gu), (ec, epub, emesh_d, ems, eu) = (
+        cores["graph"], cores["eager"])
+    require(not eu, f"eager core went through graphs: {eu}")
+    require(len(gpub) == len(epub) == N_FRAMES and gpub == epub,
+            "node core graphs vs eager: published clouds differ")
+    require(gmesh_d == emesh_d, "node core graphs vs eager: mesh differs")
+    maps_bit_equal(gc_.mapping, ec.mapping, "node core graphs vs eager")
+    require(sum(u["replays"] for u in gu.values()) > 0,
+            "node core: no replay")
+    log(f"[phase25] TaichiSLAMNodeCore: {N_FRAMES} frames of published "
+        f"slices, mesh and map equal bit for bit; process_taichi wall ms "
+        f"per frame, graphs {np.round(gms, 3).tolist()} (mean "
+        f"{gms.mean():.3f}, frames 8-15 {gms[8:].mean():.3f}), eager "
+        f"{np.round(ems, 3).tolist()} (mean {ems.mean():.3f}, frames 8-15 "
+        f"{ems[8:].mean():.3f}); units {gu} ({smi})")
+    graphs.clear()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3659,7 +3888,7 @@ def main():
     depth_n, Rs_n, Ts_n, _ = orbit_sequence(n_frames=N_FRAMES, K=KDEPTH,
                                             noise_mm=3.0)
     texs = textures(N_FRAMES)
-    node_map, node_loaded, node_path = node_phase(
+    node_map, node_loaded, node_path, node_floor = node_phase(
         dev, smi, (depth_n, Rs_n, Ts_n), texs, launches)
     node_cpu_phase(dev, (depth_n, Rs_n, Ts_n), texs)
 
@@ -3708,6 +3937,12 @@ def main():
     # ---- phase 24 --------------------------------------------------------
     for k, v in installed_phase(smi, (depth, Rs, Ts, K)).items():
         launches[k] += v
+
+    # ---- phase 25 --------------------------------------------------------
+    t0 = time.perf_counter()
+    node_graphs_phase(dev, smi, (depth_n, Rs_n, Ts_n), texs, node_floor,
+                      launches)
+    log(f"[phase25] took {time.perf_counter() - t0:.1f} s")
 
     src = "taichislam_tpu_torch/csrc/"
     table = [("seg_accum (K1)", "K1", src + "seg_accum.cu",

@@ -276,8 +276,9 @@ def size_and_time(cfg, esdf_cap, budget, bs: BenchState, frames: Frames):
 
 def mc_timer(cfg, max_triangles, cap, mask, state, dev):
     """``timed(k)``: the best of 3 runs of ``k`` back-to-back full
-    extractions (``ops/marching_cubes.extract_mesh``, which reads the host
-    as it goes), after one warm run; ms."""
+    extractions (``ops/marching_cubes.extract_mesh``: on the card one
+    graph replay each once the warm run has captured its key), after one
+    warm run; ms."""
     from taichislam_tpu_torch.ops import marching_cubes as mc_ops
     thres = cfg.tsdf_surface_thres
 

@@ -14,6 +14,7 @@ address for the state's life, which a captured CUDA graph needs
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, NamedTuple, Tuple
 
 import torch
@@ -111,9 +112,15 @@ def block_origin_voxel(spec: GridSpec, block_coords: torch.Tensor
                        ) -> torch.Tensor:
     """(..., 4) (s, bi, bj, bk) -> (..., 3) signed voxel index of the
     block's lower corner."""
-    origin = torch.tensor(spec.origin_voxel, dtype=torch.int32,
-                          device=block_coords.device)
-    return block_coords[..., 1:4] * spec.V + origin
+    return block_coords[..., 1:4] * spec.V + _origin(spec.origin_voxel,
+                                                     block_coords.device)
+
+
+@functools.lru_cache(maxsize=16)
+def _origin(origin, device) -> torch.Tensor:
+    """A grid's origin voxel as an int32 tensor, made once per device (a
+    captured graph may then read it: it holds no host-to-device copy)."""
+    return torch.tensor(origin, dtype=torch.int32, device=device)
 
 
 def lookup_slots(spec: GridSpec, table: torch.Tensor,

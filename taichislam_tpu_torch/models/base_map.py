@@ -39,6 +39,15 @@ class BaseMap:
             return a.to(device=self.device, dtype=tdt)
         return torch.as_tensor(np.asarray(a, dtype=dtype), device=self.device)
 
+    def _input(self, a, dtype=None):
+        """``a`` as an op's per-call input: on the card host data stays on
+        the host, as numpy (the op's CUDA graph stages it into its slot
+        through pinned memory) and a tensor moves as :meth:`_tensor` moves
+        it; on the CPU :meth:`_tensor`."""
+        if self.device.type != "cuda" or isinstance(a, torch.Tensor):
+            return self._tensor(a, dtype)
+        return np.asarray(a, dtype=dtype)
+
     # -- camera ------------------------------------------------------------
     def set_dep_camera_intrinsic(self, K):
         """K is a flattened row-major 3x3."""

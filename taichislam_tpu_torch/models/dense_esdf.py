@@ -197,7 +197,7 @@ class DenseESDF(DenseTSDF):
         frames."""
         if not self._esdf_obs_stale:
             return
-        self.esdf_observed = self._observed_mask()
+        self.esdf_observed.copy_(self._observed_mask())
         self._esdf_obs_stale = False
 
     def _observed_mask(self):
@@ -232,7 +232,7 @@ class DenseESDF(DenseTSDF):
             self._esdf_host_refresh()
         self._recast_window(Rs, Ts, depthmaps, textures,
                             esdf_budget=min(self.max_esdf_sweeps, 6))
-        self.esdf_observed = self._observed_mask()
+        self.esdf_observed.copy_(self._observed_mask())
         self._esdf_frame += len(depthmaps)
 
     def _window_entry(self, esdf):
@@ -375,11 +375,12 @@ class DenseESDF(DenseTSDF):
         if dirty is not None and self._esdf_win_ok and \
                 self.esdf_dense_max_voxels:
             self._esdf_last_mode = "window"
-            (self.esdf, self.esdf_fixed, self.esdf_observed, sweeps,
-             changed, overflow) = esdf_ops.esdf_update_dense(
+            (esdf, fixed, observed, sweeps, changed,
+             overflow) = esdf_ops.esdf_update_dense(
                 self.cfg, self.max_esdf_sweeps, self._esdf_win_dims,
                 self.state, self.esdf, self.esdf_fixed, sid,
                 dirty_blocks=dirty, **snap)
+            self._write_esdf(esdf, fixed, observed)
             c4 = self.state.block_coords
             anchor = dirty & self.state.block_active & (c4[:, 0] == sid)
             anchor[-1] = False
@@ -389,10 +390,11 @@ class DenseESDF(DenseTSDF):
             spans = torch.clamp(maxs - mins + 1, min=0)
         elif dims is not None:
             self._esdf_last_mode = "dense"
-            (self.esdf, self.esdf_fixed, self.esdf_observed, sweeps,
-             changed, overflow) = esdf_ops.esdf_update_dense(
+            (esdf, fixed, observed, sweeps, changed,
+             overflow) = esdf_ops.esdf_update_dense(
                 self.cfg, self.max_esdf_sweeps, dims, self.state,
                 self.esdf, self.esdf_fixed, sid)
+            self._write_esdf(esdf, fixed, observed)
         else:
             full_cap = 128
             while full_cap < self._esdf_nblocks_cached:
@@ -402,10 +404,12 @@ class DenseESDF(DenseTSDF):
                       else full_cap, full_cap)
             self._esdf_last_mode = "block"
             self._esdf_last_cap = (cap, full_cap)
-            (self.esdf, self.esdf_fixed, self.esdf_observed, sweeps,
-             changed, overflow) = esdf_ops.esdf_update(
+            # esdf and fixed are written in place
+            (_, _, observed, sweeps, changed,
+             overflow) = esdf_ops.esdf_update(
                 self.cfg, self.max_esdf_sweeps, cap, self.state,
                 self.esdf, self.esdf_fixed, sid, dirty, **snap)
+            self.esdf_observed.copy_(observed)
         # written in place: the deferred sequences' graphs hold the tensor
         self._pending_or_zeros().copy_(changed)
         i32 = torch.int32
@@ -427,6 +431,15 @@ class DenseESDF(DenseTSDF):
         self._esdf_frame += 1
         if interactive or self._esdf_frame % self.esdf_check_interval == 0:
             self._esdf_verdict()
+
+    def _write_esdf(self, esdf, fixed, observed):
+        """Write a dense update's field, fixed flags and observed mask into
+        the model's tensors in place: the graphs of the units that read or
+        write them (the deferred sequences' included) are keyed on their
+        addresses."""
+        self.esdf.copy_(esdf)
+        self.esdf_fixed.copy_(fixed)
+        self.esdf_observed.copy_(observed)
 
     def _esdf_verdict(self):
         """One host read of the accumulated counts. On a working-set

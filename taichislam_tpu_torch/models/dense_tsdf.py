@@ -188,10 +188,10 @@ class DenseTSDF(BaseMap):
         kc = self.K_cam_color if self.K_cam_color is not None else \
             self.K_cam_dep
         self.state, stats = tsdf_ops.integrate_depth(
-            cfg, self.state, self._tensor(depthmap, np.int32),
-            self._tensor(tex), self._tensor(self.input_R),
-            self._tensor(self.input_T), self._tensor(self.K_cam_dep),
-            self._tensor(kc), self.active_submap_id)
+            cfg, self.state, self._input(depthmap, np.int32),
+            self._input(tex, np.uint8), self._input(self.input_R),
+            self._input(self.input_T), self._input(self.K_cam_dep),
+            self._input(kc), self.active_submap_id)
         return stats
 
     def recast_depth_to_map(self, R, T, depthmap, texture):
@@ -210,9 +210,8 @@ class DenseTSDF(BaseMap):
             (len(xyz_array), 3), np.float32)
         self.state, stats = tsdf_ops.integrate_pcl(
             self._recast_cfg(), self.state,
-            self._tensor(xyz_array, np.float32), self._tensor(rgb,
-                                                              np.float32),
-            self._tensor(self.input_R), self._tensor(self.input_T),
+            self._input(xyz_array, np.float32), self._input(rgb, np.float32),
+            self._input(self.input_R), self._input(self.input_T),
             self.active_submap_id)
         self._after_recast(stats)
 

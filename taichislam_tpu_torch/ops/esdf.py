@@ -20,6 +20,13 @@ See the JAX module for the algorithms. ``esdf_seed_dirty`` updates
 ``seen_tsdf`` / ``seen_obs`` in place; ``esdf_update`` updates
 ``prev_esdf`` / ``prev_fixed`` in place and returns them;
 ``esdf_update_dense`` returns new tensors.
+
+``esdf_seed_dirty``, ``esdf_update``, ``esdf_update_dense`` and
+``esdf_slice_export`` are units of ``ops/graphs.py``: on the card each call
+is one CUDA graph replay (the dense update three: set-up, a chunk of
+``_SWEEP_CHECK`` sweeps replayed until the device's flag reads false, and
+finish), the counterpart of the JAX package's jitted functions; their
+``*_ref`` twins are the eager bodies, which CPU tensors take.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from taichislam_tpu_torch.core.config import TSDFConfig
 from taichislam_tpu_torch.core.device import resolve_device
 from taichislam_tpu_torch.core.geometry import inv, sign
 from taichislam_tpu_torch.core.grid import block_origin_voxel, lookup_slots
+from taichislam_tpu_torch.ops import graphs
 from taichislam_tpu_torch.ops.kernels.esdf_sweep import (ENC_BIG,
                                                          esdf_sweep,
                                                          esdf_sweep_loop)
@@ -230,6 +238,12 @@ def _compact_rows(mask, cap, nb):
     return rows, kept, total
 
 
+SEED_DIRTY = graphs.UnitCache("esdf_seed_dirty", size=4)
+ESDF_UPDATE = graphs.UnitCache("esdf_update", size=6)
+ESDF_DENSE = graphs.UnitCache("esdf_update_dense", size=4)
+SLICE_EXPORT = graphs.UnitCache("esdf_slice_export", size=2)
+
+
 def esdf_seed_dirty(cfg: TSDFConfig, state, seen_tsdf, seen_obs, touched,
                     touched_cap: int = 512):
     """Updated-voxel gating: of the frame-``touched`` blocks, those where
@@ -237,7 +251,24 @@ def esdf_seed_dirty(cfg: TSDFConfig, state, seen_tsdf, seen_obs, touched,
     observed flag flipped) since the ESDF last consumed them are dirty;
     dirty rows refresh the snapshots. Rows above ``touched_cap`` are dirty
     uncompared. Returns (dirty, seen_tsdf, seen_obs); the snapshots are
-    updated in place."""
+    updated in place. CPU state: :func:`esdf_seed_dirty_ref`; on the card
+    one graph replay (``ops/graphs.py``), ``touched`` staged."""
+    if graphs.eager(seen_tsdf):
+        return esdf_seed_dirty_ref(cfg, state, seen_tsdf, seen_obs, touched,
+                                   touched_cap)
+
+    def body(w, s):
+        return esdf_seed_dirty_ref(cfg, state, w[0], w[1], s["touched"],
+                                   touched_cap)
+    return SEED_DIRTY.call(
+        ("esdf_seed_dirty", cfg, int(touched_cap)), body,
+        written=(seen_tsdf, seen_obs), bound=graphs.leaves((state,)),
+        inputs={"touched": (touched, torch.bool)})
+
+
+def esdf_seed_dirty_ref(cfg: TSDFConfig, state, seen_tsdf, seen_obs,
+                        touched, touched_cap: int = 512):
+    """The eager body of :func:`esdf_seed_dirty` (every device)."""
     nb = cfg.grid.max_blocks + 1
     eps = float(np.float32(max(cfg.esdf_seed_eps_voxels, 0.0) *
                            cfg.voxel_scale))
@@ -436,6 +467,37 @@ def slab_rows(block_cap: int, n: int = 1) -> int:
 def esdf_update(cfg: TSDFConfig, max_sweeps: int, block_cap: int, state,
                 prev_esdf, prev_fixed, active_submap: int, dirty_blocks=None,
                 _ablate: str = "", tsdf_src=None, obs_src=None):
+    """ESDF over the active submap's observed voxels, block mode: see
+    :func:`esdf_update_ref`, which CPU tensors take. On the card one graph
+    replay (``ops/graphs.py``) with K3's cooperative launch (or K2's
+    per-sweep launches) inside; ``dirty_blocks`` is staged, the state,
+    ``prev_esdf`` / ``prev_fixed`` and the seed sources are read and
+    written in place."""
+    if _ablate:
+        raise ValueError(f"no ablation {_ablate!r} in the port")
+    if graphs.eager(prev_esdf):
+        return esdf_update_ref(cfg, max_sweeps, block_cap, state, prev_esdf,
+                               prev_fixed, active_submap, dirty_blocks,
+                               tsdf_src=tsdf_src, obs_src=obs_src)
+    active = int(active_submap)
+    inputs = {} if dirty_blocks is None else {
+        "dirty": (dirty_blocks, torch.bool)}
+
+    def body(w, s):
+        return esdf_update_ref(cfg, max_sweeps, block_cap, state, w[0], w[1],
+                               active, s.get("dirty"), tsdf_src=tsdf_src,
+                               obs_src=obs_src)
+    static = ("esdf_update", cfg, int(max_sweeps), int(block_cap), active,
+              dirty_blocks is None, tsdf_src is None, obs_src is None)
+    return ESDF_UPDATE.call(static, body, written=(prev_esdf, prev_fixed),
+                            bound=graphs.leaves((state, tsdf_src, obs_src)),
+                            inputs=inputs)
+
+
+def esdf_update_ref(cfg: TSDFConfig, max_sweeps: int, block_cap: int, state,
+                    prev_esdf, prev_fixed, active_submap: int,
+                    dirty_blocks=None, _ablate: str = "", tsdf_src=None,
+                    obs_src=None):
     """ESDF over the active submap's observed voxels, block mode.
 
     Without ``dirty_blocks`` the working set is every active block; with it,
@@ -547,7 +609,32 @@ def esdf_slice_export(cfg: TSDFConfig, capacity: int, block_cap: int, state,
     """Observed ESDF voxels whose signed z-index k lies in
     ``(int(z/voxel) - dz, int(z/voxel) + dz)``, compacted in linear-index
     order, colored by jet over [-max_ray/4, max_ray/4]. Returns (x, y, z,
-    esdf, color (capacity, 3), kept), each padded to ``capacity``."""
+    esdf, color (capacity, 3), kept), each padded to ``capacity``. CPU
+    state: :func:`esdf_slice_export_ref`; on the card one graph replay
+    (``ops/graphs.py``), the base poses (host arrays or tensors) staged."""
+    if graphs.eager(esdf):
+        return esdf_slice_export_ref(cfg, capacity, block_cap, state, esdf,
+                                     participate, base_R, base_T,
+                                     active_submap, z, dz)
+    active = int(active_submap)
+
+    def body(w, s):
+        return esdf_slice_export_ref(cfg, capacity, block_cap, state, esdf,
+                                     participate, s["base_R"], s["base_T"],
+                                     active, z, dz)
+    static = ("esdf_slice_export", cfg, int(capacity), int(block_cap),
+              active, float(z), float(dz))
+    return SLICE_EXPORT.call(
+        static, body, bound=graphs.leaves((state, esdf, participate)),
+        inputs={"base_R": (base_R, torch.float32),
+                "base_T": (base_T, torch.float32)})
+
+
+def esdf_slice_export_ref(cfg: TSDFConfig, capacity: int, block_cap: int,
+                          state, esdf, participate, base_R, base_T,
+                          active_submap: int, z: float, dz: float):
+    """The eager body of :func:`esdf_slice_export` (every device); base
+    poses not on the state's device are moved there."""
     from taichislam_tpu_torch.core.colormap import color_from_colormap
     from taichislam_tpu_torch.ops.exports import (_compact_blocks,
                                                   _gathered_ijk_c,
@@ -557,6 +644,8 @@ def esdf_slice_export(cfg: TSDFConfig, capacity: int, block_cap: int, state,
     nb = spec.max_blocks + 1
     V3 = spec.voxels_per_block
     dev = esdf.device
+    base_R = graphs.to_device(base_R, dev, np.float32)
+    base_T = graphs.to_device(base_T, dev, np.float32)
     base = block_origin_voxel(spec, state.block_coords)        # (nb, 3)
     kidx = (base[:, 2:3] + _intra_offsets(spec.V, dev)[None, :, 2]).float()
     lo, hi = _slice_bounds(cfg, z, dz)
@@ -659,46 +748,44 @@ def _dense_scan_candidates(h, brk, v1, big):
     return out
 
 
-def esdf_update_dense(cfg: TSDFConfig, max_sweeps: int, dims_blocks, state,
-                      prev_esdf, prev_fixed, active_submap: int,
-                      dirty_blocks=None, tsdf_src=None, obs_src=None):
-    """Dense-window variant of :func:`esdf_update` (same returns, same
-    optional consume-once seed source).
+def _dense_consts(cfg: TSDFConfig):
+    """The dense sweep's f32 constants: v1, v2, v3, eps, max_ray, gamma,
+    eps_conv."""
+    f32 = np.float32
+    gamma = float(f32(cfg.voxel_scale))
+    return dict(
+        v1=gamma, v2=float(f32(np.sqrt(2.0) * cfg.voxel_scale)),
+        v3=float(f32(np.sqrt(3.0) * cfg.voxel_scale)),
+        eps=float(f32(max(cfg.esdf_raise_slack_voxels * cfg.voxel_scale,
+                          1e-4))),
+        max_ray=float(f32(cfg.max_ray_length)), gamma=gamma,
+        eps_conv=float(f32(cfg.esdf_converge_eps)))
 
-    ``dims_blocks`` is the (DBX, DBY, DBZ) window in blocks; its origin is
-    the minimum coordinate of the participating blocks (with
-    ``dirty_blocks``: of the dirty blocks, less a one-block ring, and the
-    in-window non-dirty blocks are frozen Dirichlet sources). Participating
-    (dirty) blocks that do not fit are counted in the overflow. The sweep
-    loop runs on the device with an ``active`` flag, so the sweep count
-    equals the JAX while-loop's; the host reads the flag every
-    ``_SWEEP_CHECK`` sweeps to stop early."""
+
+def _dense_setup(cfg: TSDFConfig, dims_blocks, state, prev_esdf, prev_fixed,
+                 active_submap: int, dirty_blocks, tsdf_src, obs_src):
+    """Everything before the sweep loop of :func:`esdf_update_dense`: the
+    window, the dense seeds, sides and sources, and the loop's carry
+    (``esdf``, the ``active`` flag and the ``sweeps`` count), which
+    :func:`_dense_sweeps` updates in place. Returns a dict of tensors."""
     spec = cfg.grid
     V = spec.V
-    nb = spec.max_blocks + 1
     V3 = spec.voxels_per_block
     DBX, DBY, DBZ = dims_blocks
     NBD = DBX * DBY * DBZ
     dev = prev_esdf.device
-    f32 = np.float32
-    gamma = float(f32(cfg.voxel_scale))
-    max_ray = float(f32(cfg.max_ray_length))
-    v1 = gamma
-    v2 = float(f32(np.sqrt(2.0) * cfg.voxel_scale))
-    v3c = float(f32(np.sqrt(3.0) * cfg.voxel_scale))
-    eps = float(f32(max(cfg.esdf_raise_slack_voxels * cfg.voxel_scale,
-                        1e-4)))
-    eps_conv = float(f32(cfg.esdf_converge_eps))
+    k = _dense_consts(cfg)
+    gamma, max_ray = k["gamma"], k["max_ray"]
 
     c4 = state.block_coords
     blk = state.block_active & (c4[:, 0] == int(active_submap))
-    blk[-1] = False
+    blk[-1].fill_(False)
     if dirty_blocks is None:
         anchor = blk
         ring = 0
     else:
         anchor = blk & dirty_blocks
-        anchor[-1] = False
+        anchor[-1].fill_(False)
         ring = 1
     huge = 1 << 20
     org = torch.where(anchor[:, None], c4[:, 1:4],
@@ -711,7 +798,6 @@ def esdf_update_dense(cfg: TSDFConfig, max_sweeps: int, dims_blocks, state,
     overflow = (anchor & ~in_core).sum(dtype=torch.int32)
     dlin = torch.where(in_win, (dbi * DBY + dbj) * DBZ + dbk,
                        torch.full_like(dbi, NBD)).long()
-
     X, Y, Z = DBX * V, DBY * V, DBZ * V
 
     def to_dense(rows, fill):
@@ -719,13 +805,6 @@ def esdf_update_dense(cfg: TSDFConfig, max_sweeps: int, dims_blocks, state,
         d[dlin] = rows
         d = d[:NBD].reshape(DBX, DBY, DBZ, V, V, V).permute(0, 3, 1, 4, 2, 5)
         return d.reshape(X, Y, Z)
-
-    def from_dense(d):
-        rows = d.reshape(DBX, V, DBY, V, DBZ, V).permute(
-            0, 2, 4, 1, 3, 5).reshape(NBD, V3)
-        rows = torch.cat([rows, torch.zeros((1, V3), dtype=d.dtype,
-                                            device=dev)])
-        return rows[dlin]
 
     tsdf_full_src = state.channels["TSDF"] if tsdf_src is None else tsdf_src
     obs_full_src = (state.channels["TSDF_observed"] > 0 if obs_src is None
@@ -758,50 +837,79 @@ def esdf_update_dense(cfg: TSDFConfig, max_sweeps: int, dims_blocks, state,
             DBX, V, DBY, V, DBZ, V).reshape(X, Y, Z)
         pos_side &= upd
         neg_side &= upd
-    brk_lo = ~pos_src | fixed
-    brk_hi = ~neg_src | fixed
+    return dict(
+        blk=blk, anchor=anchor, in_win=in_win, dlin=dlin, overflow=overflow,
+        participate_full=obs_full_src & blk[:, None], fixed=fixed,
+        participate=participate,
+        pos_side=pos_side, neg_side=neg_side, pos_src=pos_src,
+        neg_src=neg_src, brk_lo=~pos_src | fixed, brk_hi=~neg_src | fixed,
+        esdf=esdf0, active=torch.ones((), dtype=torch.bool, device=dev),
+        sweeps=torch.zeros((), dtype=torch.int32, device=dev))
 
-    def sweep(esdf):
+
+def _dense_sweeps(cfg: TSDFConfig, d, n: int):
+    """``n`` sweeps of the JAX while-loop's body on the carry of
+    :func:`_dense_setup`, IN PLACE: a sweep changes the field and counts
+    only while ``active`` (the previous sweep changed the field)."""
+    k = _dense_consts(cfg)
+    v1, v2, v3c, eps = k["v1"], k["v2"], k["v3"], k["eps"]
+    max_ray = k["max_ray"]
+    pos_src, neg_src = d["pos_src"], d["neg_src"]
+    for _ in range(n):
+        esdf = d["esdf"]
         lo = torch.where(pos_src, esdf, BIG)
         hi = torch.where(neg_src, esdf, -BIG)
         fl, el, cl = _dense_extrema(lo, torch.minimum, BIG)
         fh, eh, ch = _dense_extrema(hi, torch.maximum, -BIG)
         cand_lo = torch.minimum(torch.minimum(fl + v1, el + v2), cl + v3c)
         cand_hi = torch.maximum(torch.maximum(fh - v1, eh - v2), ch - v3c)
-        cand_lo = torch.minimum(cand_lo,
-                                _dense_scan_candidates(lo, brk_lo, v1, BIG))
-        cand_hi = torch.maximum(cand_hi,
-                                -_dense_scan_candidates(-hi, brk_hi, v1,
-                                                        BIG))
+        cand_lo = torch.minimum(cand_lo, _dense_scan_candidates(
+            lo, d["brk_lo"], v1, BIG))
+        cand_hi = torch.maximum(cand_hi, -_dense_scan_candidates(
+            -hi, d["brk_hi"], v1, BIG))
         new = torch.where(cand_lo <= esdf + eps, torch.minimum(esdf, cand_lo),
                           torch.clamp(cand_lo, max=max_ray))
-        new = torch.where(pos_side, new, esdf)
+        new = torch.where(d["pos_side"], new, esdf)
         new_n = torch.where(cand_hi >= esdf - eps,
                             torch.maximum(esdf, cand_hi),
                             torch.clamp(cand_hi, min=-max_ray))
-        new = torch.where(neg_side, new_n, new)
-        return new, ((new - esdf).abs() > eps_conv).any()
+        new = torch.where(d["neg_side"], new_n, new)
+        changed = ((new - esdf).abs() > k["eps_conv"]).any()
+        active = d["active"]
+        esdf.copy_(torch.where(active, new, esdf))
+        d["sweeps"].add_(active.to(torch.int32))
+        active.logical_and_(changed)
 
-    # the JAX while-loop: a sweep runs while the previous one changed the
-    # field; the flag stays on the device between host checks
-    esdf_d = esdf0
-    active = torch.ones((), dtype=torch.bool, device=dev)
-    sweeps = torch.zeros((), dtype=torch.int32, device=dev)
-    for s in range(max_sweeps):
-        if s % _SWEEP_CHECK == 0 and s > 0 and not bool(active):
-            break
-        new, changed = sweep(esdf_d)
-        esdf_d = torch.where(active, new, esdf_d)
-        sweeps = sweeps + active.to(torch.int32)
-        active = active & changed
 
-    esdf_rows = from_dense(esdf_d)
-    fixed_rows = from_dense(fixed.to(torch.int8))
-    part_rows = from_dense(participate)
+def _dense_finish(cfg: TSDFConfig, dims_blocks, d, prev_esdf, prev_fixed,
+                  incremental: bool):
+    """Everything after the sweep loop of :func:`esdf_update_dense`: the
+    field back to rows, the kept rows merged over the previous field, and
+    the changed (and, incrementally, woken) blocks. Returns its six
+    outputs."""
+    spec = cfg.grid
+    V = spec.V
+    V3 = spec.voxels_per_block
+    DBX, DBY, DBZ = dims_blocks
+    NBD = DBX * DBY * DBZ
+    dev = prev_esdf.device
+    eps_conv = _dense_consts(cfg)["eps_conv"]
+    dlin, in_win, blk, anchor = d["dlin"], d["in_win"], d["blk"], d["anchor"]
 
-    participate_full = obs_full_src & blk[:, None]
+    def from_dense(x):
+        rows = x.reshape(DBX, V, DBY, V, DBZ, V).permute(
+            0, 2, 4, 1, 3, 5).reshape(NBD, V3)
+        rows = torch.cat([rows, torch.zeros((1, V3), dtype=x.dtype,
+                                            device=dev)])
+        return rows[dlin]
+
+    esdf_rows = from_dense(d["esdf"])
+    fixed_rows = from_dense(d["fixed"].to(torch.int8))
+    part_rows = from_dense(d["participate"])
+
+    participate_full = d["participate_full"]
     keep = in_win[:, None] & part_rows
-    if dirty_blocks is not None:
+    if incremental:
         keep &= anchor[:, None]          # frozen rim rows pass through
     esdf_out = torch.where(keep, esdf_rows,
                            torch.where(participate_full, prev_esdf, 0.0))
@@ -811,8 +919,8 @@ def esdf_update_dense(cfg: TSDFConfig, max_sweeps: int, dims_blocks, state,
     rowdiff = keep & (((esdf_rows - prev_esdf).abs() > eps_conv) |
                       (fixed_rows != prev_fixed))
     changed_blocks = rowdiff.any(dim=1)
-    changed_blocks[-1] = False
-    if dirty_blocks is not None:
+    changed_blocks[-1].fill_(False)
+    if incremental:
         # a dirty block whose boundary shell changed wakes its
         # 26-neighbourhood next frame (dilation on the window-block grid)
         shell_row = (rowdiff & _shell_mask(V, dev)[None, :]).any(dim=1)
@@ -824,6 +932,77 @@ def esdf_update_dense(cfg: TSDFConfig, max_sweeps: int, dims_blocks, state,
                 _dshift(wchg, 1, ax, False)
         wake = wchg.reshape(-1)[torch.clamp(dlin, max=NBD - 1)] & in_win
         changed_blocks = changed_blocks | (blk & wake)
-        changed_blocks[-1] = False
-    return esdf_out, fixed_out, participate_full, sweeps, changed_blocks, \
-        overflow
+        changed_blocks[-1].fill_(False)
+    return esdf_out, fixed_out, participate_full, d["sweeps"], \
+        changed_blocks, d["overflow"]
+
+
+def _dense_loop(max_sweeps: int, d, run_chunk):
+    """The JAX while-loop on the host's schedule: chunks of
+    ``_SWEEP_CHECK`` masked sweeps (``run_chunk(n)``), and before every
+    chunk but the first one host read of the device's ``active`` flag, so
+    the sweep count equals the while-loop's."""
+    for s0 in range(0, max_sweeps, _SWEEP_CHECK):
+        if s0 > 0 and not bool(d["active"]):
+            break
+        run_chunk(min(_SWEEP_CHECK, max_sweeps - s0))
+
+
+def esdf_update_dense_ref(cfg: TSDFConfig, max_sweeps: int, dims_blocks,
+                          state, prev_esdf, prev_fixed, active_submap: int,
+                          dirty_blocks=None, tsdf_src=None, obs_src=None):
+    """The eager body of :func:`esdf_update_dense` (every device)."""
+    d = _dense_setup(cfg, dims_blocks, state, prev_esdf, prev_fixed,
+                     active_submap, dirty_blocks, tsdf_src, obs_src)
+    _dense_loop(max_sweeps, d, lambda n: _dense_sweeps(cfg, d, n))
+    return _dense_finish(cfg, dims_blocks, d, prev_esdf, prev_fixed,
+                         dirty_blocks is not None)
+
+
+def esdf_update_dense(cfg: TSDFConfig, max_sweeps: int, dims_blocks, state,
+                      prev_esdf, prev_fixed, active_submap: int,
+                      dirty_blocks=None, tsdf_src=None, obs_src=None):
+    """Dense-window variant of :func:`esdf_update` (same returns, same
+    optional consume-once seed source).
+
+    ``dims_blocks`` is the (DBX, DBY, DBZ) window in blocks; its origin is
+    the minimum coordinate of the participating blocks (with
+    ``dirty_blocks``: of the dirty blocks, less a one-block ring, and the
+    in-window non-dirty blocks are frozen Dirichlet sources). Participating
+    (dirty) blocks that do not fit are counted in the overflow. The sweep
+    loop runs on the device with an ``active`` flag, so the sweep count
+    equals the JAX while-loop's; the host reads the flag every
+    ``_SWEEP_CHECK`` sweeps to stop early. Returns new tensors.
+
+    CPU state: :func:`esdf_update_dense_ref`. On the card three graphs of
+    ``ops/graphs.py`` per key: the set-up, one chunk of ``_SWEEP_CHECK``
+    sweeps (a shorter last chunk its own graph), replayed until the flag
+    reads false, and the finish; ``dirty_blocks`` is staged."""
+    if graphs.eager(prev_esdf):
+        return esdf_update_dense_ref(cfg, max_sweeps, dims_blocks, state,
+                                     prev_esdf, prev_fixed, active_submap,
+                                     dirty_blocks, tsdf_src, obs_src)
+    dims = tuple(int(x) for x in dims_blocks)
+    active = int(active_submap)
+    incremental = dirty_blocks is not None
+    inputs = {"dirty": (dirty_blocks, torch.bool)} if incremental else {}
+    tensors = graphs.leaves((state, prev_esdf, prev_fixed, tsdf_src,
+                             obs_src))
+    static = ("esdf_update_dense", cfg, int(max_sweeps), dims, active,
+              incremental, tsdf_src is None, obs_src is None)
+    unit = ESDF_DENSE
+    with unit.lock:
+        e, first = unit.enter(static, tensors, inputs)
+        if first:
+            with graphs.bodies():
+                return esdf_update_dense_ref(
+                    cfg, max_sweeps, dims, state, prev_esdf, prev_fixed,
+                    active, e.slots.get("dirty"), tsdf_src, obs_src)
+        d = unit.run(e, "setup", lambda: _dense_setup(
+            cfg, dims, state, prev_esdf, prev_fixed, active,
+            e.slots.get("dirty"), tsdf_src, obs_src), tensors)
+        _dense_loop(max_sweeps, d, lambda n: unit.run(
+            e, f"sweeps{n}", lambda: _dense_sweeps(cfg, d, n), tensors))
+        out = unit.run(e, "finish", lambda: _dense_finish(
+            cfg, dims, d, prev_esdf, prev_fixed, incremental), tensors)
+        return graphs.detach(out, tensors)

@@ -8,6 +8,10 @@ are compacted in linear-index order, so the output arrays equal the JAX
 package's element for element. The world position sum
 ``R0·l0 + R1·l1 + R2·l2 + T`` is contracted as XLA contracts it (``dot3``).
 
+On the card ``tsdf_surface_export`` is a unit of ``ops/graphs.py``: one
+CUDA graph replay per call up to its count, which the caller reads; its
+``*_ref`` twin is the eager body, which CPU tensors take.
+
 The byte layouts of ``sparse_gather_packed``, ``bitmap_gather_packed``
 and the numpy decoders are those of the JAX package, so a map or submap
 exported by one package loads in the other.
@@ -29,6 +33,7 @@ from taichislam_tpu_torch.core.grid import (GridState, allocate_blocks,
                                             comp_flat_index,
                                             flat_voxel_index, lookup_slots,
                                             voxel_to_block_c)
+from taichislam_tpu_torch.ops import graphs
 
 
 @functools.lru_cache(maxsize=8)
@@ -74,7 +79,7 @@ def _active_voxel_mask(spec: GridSpec, state: GridState, active_submap: int,
     blk = state.block_active.clone()
     if require_submap:
         blk &= state.block_coords[:, 0] == int(active_submap)
-    blk[-1] = False
+    blk[-1].fill_(False)
     return blk[:, None].expand(blk.shape[0], spec.voxels_per_block)
 
 
@@ -112,18 +117,45 @@ def _gathered_xyz_c(spec: GridSpec, coords, ijk_c, base_R, base_T,
     return _pose_xyz(base_R, base_T, s, loc)
 
 
+SURFACE_EXPORT = graphs.UnitCache("tsdf_surface_export", size=2)
+
+
 def tsdf_surface_export(cfg: TSDFConfig, capacity: int, block_cap: int,
                         state: GridState, base_R, base_T,
                         active_submap: int):
     """Observed voxels of the active submap with ``|TSDF| <
     tsdf_surface_thres`` and world z within [disp_floor, disp_ceiling].
     Returns (x, y, z, color (capacity, 3), tsdf, kept), padded to
-    ``capacity``; colors are the texture, or jet by height."""
+    ``capacity``; colors are the texture, or jet by height. CPU state:
+    :func:`tsdf_surface_export_ref`; on the card one graph replay
+    (``ops/graphs.py``), the base poses (host arrays or tensors) staged."""
+    if graphs.eager(state.table):
+        return tsdf_surface_export_ref(cfg, capacity, block_cap, state,
+                                       base_R, base_T, active_submap)
+    active = int(active_submap)
+
+    def body(w, s):
+        return tsdf_surface_export_ref(cfg, capacity, block_cap, state,
+                                       s["base_R"], s["base_T"], active)
+    return SURFACE_EXPORT.call(
+        ("tsdf_surface_export", cfg, int(capacity), int(block_cap), active),
+        body, bound=graphs.leaves((state,)),
+        inputs={"base_R": (base_R, torch.float32),
+                "base_T": (base_T, torch.float32)})
+
+
+def tsdf_surface_export_ref(cfg: TSDFConfig, capacity: int, block_cap: int,
+                            state: GridState, base_R, base_T,
+                            active_submap: int):
+    """The eager body of :func:`tsdf_surface_export` (every device); base
+    poses not on the state's device are moved there."""
     spec = cfg.grid
     ch = state.channels
     nb = spec.max_blocks + 1
     V3 = spec.voxels_per_block
     dev = state.table.device
+    base_R = graphs.to_device(base_R, dev, np.float32)
+    base_T = graphs.to_device(base_T, dev, np.float32)
     obs = ch["TSDF_observed"].reshape(nb, V3) == 1
     tsdf_full = ch["TSDF"].reshape(nb, V3).float()
     pre_mask = _active_voxel_mask(spec, state, active_submap) & obs & \

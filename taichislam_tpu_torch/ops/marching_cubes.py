@@ -15,6 +15,11 @@ B. build the first ``max_triangles`` triangles in cell-major order: a
    the tet edges, normals are the central-difference TSDF gradient at the
    rounded vertex, colors interpolate the corner colors.
 
+On the card ``dilate_blocks`` and ``extract_mesh`` are units of
+``ops/graphs.py``, one CUDA graph replay per call (the JAX package's jitted
+functions); their ``*_ref`` twins are the eager bodies, which CPU tensors
+take.
+
 Cells with an unobserved corner are skipped; vertices are in map-local
 metres (no base pose). The interpolation ``p0 + mu·(p1 - p0)`` is
 contracted as XLA contracts it, and normal lengths take a correctly
@@ -22,6 +27,8 @@ rounded sqrt.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -32,6 +39,7 @@ from taichislam_tpu_torch.core.geometry import fma, sqrt_rn
 from taichislam_tpu_torch.core.grid import (block_origin_voxel,
                                             flat_voxel_index, gather_channel,
                                             lookup_slots, voxel_to_block_c)
+from taichislam_tpu_torch.ops import graphs
 from taichislam_tpu_torch.ops.esdf import (assemble_halo,
                                            neighbor_slot_cols,
                                            neighbor_slot_table)
@@ -103,6 +111,21 @@ def tet_tri_tables(device=None):
             torch.from_numpy(_EDGES).to(device))
 
 
+@functools.lru_cache(maxsize=8)
+def _tables(device):
+    """The extraction's constant tensors on ``device``, made once (a
+    captured graph may then read them: it holds no host-to-device copy):
+    ntri, edges, the tets (int64), the cube corners, the normal probe
+    offsets and the case bit weights."""
+    ntri, edges = tet_tri_tables(device)
+    return dict(ntri=ntri, edges=edges,
+                tets=torch.from_numpy(TETS).long().to(device),
+                corners=torch.from_numpy(CUBE_CORNERS).to(device),
+                offs=torch.from_numpy(_NORMAL_OFFS).to(device),
+                pow2=torch.tensor([1, 2, 4, 8], dtype=torch.int32,
+                                  device=device))
+
+
 def _lookup(spec, state, channel, s: int, ijk):
     blin, intra, _ = voxel_to_block_c(spec, s, ijk[..., 0], ijk[..., 1],
                                       ijk[..., 2])
@@ -131,28 +154,71 @@ def _corner_values_halo(halo, V):
                         for dx, dy, dz in CUBE_CORNERS], dim=-1)
 
 
+DILATE = graphs.UnitCache("dilate_blocks", size=2)
+EXTRACT = graphs.UnitCache("extract_mesh", size=4)
+
+
 def dilate_blocks(cfg: TSDFConfig, state, active_submap: int, bitmap):
     """26-dilate a per-slot block bitmap through the allocated-neighbour
     table, restricted to the active submap's blocks: a block's mesh reads
-    corners from its +1 halo and normals across any face."""
+    corners from its +1 halo and normals across any face. CPU state:
+    :func:`dilate_blocks_ref`; on the card one graph replay
+    (``ops/graphs.py``), ``bitmap`` staged."""
+    if graphs.eager(state.table):
+        return dilate_blocks_ref(cfg, state, active_submap, bitmap)
+    active = int(active_submap)
+    return DILATE.call(
+        ("dilate_blocks", cfg, active),
+        lambda w, s: dilate_blocks_ref(cfg, state, active, s["bitmap"]),
+        bound=graphs.leaves((state,)),
+        inputs={"bitmap": (bitmap, torch.bool)})
+
+
+def dilate_blocks_ref(cfg: TSDFConfig, state, active_submap: int, bitmap):
+    """The eager body of :func:`dilate_blocks` (every device)."""
     nb = cfg.grid.max_blocks + 1
     dev = bitmap.device
     src = bitmap.clone()
-    src[-1] = False
+    src[-1].fill_(False)
     cols = neighbor_slot_cols(cfg.grid, state, active_submap)   # (27, nb)
     tgt = torch.where(src[None, :], cols, nb - 1).reshape(-1).long()
     out = torch.zeros((nb,), dtype=torch.bool, device=dev)
-    out[tgt] = True
+    out.index_fill_(0, tgt, True)
     out = out | bitmap
     blk = state.block_active & (state.block_coords[:, 0] == int(active_submap))
     out = out & blk
-    out[-1] = False
+    out[-1].fill_(False)
     return out
 
 
 def extract_mesh(cfg: TSDFConfig, max_triangles: int, step: int,
                  surface_block_cap: int, state, active_submap: int,
                  surface_thres: float, block_mask=None):
+    """Isosurface of the active submap: see :func:`extract_mesh_ref`, which
+    CPU state takes. On the card one graph replay (``ops/graphs.py``) per
+    (``max_triangles``, ``step``, ``surface_block_cap``, submap,
+    threshold), ``block_mask`` staged."""
+    if graphs.eager(state.table):
+        return extract_mesh_ref(cfg, max_triangles, step, surface_block_cap,
+                                state, active_submap, surface_thres,
+                                block_mask)
+    active = int(active_submap)
+    inputs = {} if block_mask is None else {
+        "mask": (block_mask, torch.bool)}
+
+    def body(w, s):
+        return extract_mesh_ref(cfg, max_triangles, step, surface_block_cap,
+                                state, active, surface_thres, s.get("mask"))
+    static = ("extract_mesh", cfg, int(max_triangles), int(step),
+              int(surface_block_cap), active, float(surface_thres),
+              block_mask is None)
+    return EXTRACT.call(static, body, bound=graphs.leaves((state,)),
+                        inputs=inputs)
+
+
+def extract_mesh_ref(cfg: TSDFConfig, max_triangles: int, step: int,
+                     surface_block_cap: int, state, active_submap: int,
+                     surface_thres: float, block_mask=None):
     """Isosurface of the active submap. Returns a dict: vertices, normals,
     colors (max_triangles*3, 3); num_triangles, total_triangles (before the
     cap), num_surface_blocks, surface_blocks_dropped (0-d int32);
@@ -167,13 +233,14 @@ def extract_mesh(cfg: TSDFConfig, max_triangles: int, step: int,
     nb = spec.max_blocks + 1
     dev = state.table.device
     s_id = int(active_submap)
-    nt_tab, edge_tab = tet_tri_tables(dev)
+    tab = _tables(dev)
+    nt_tab, edge_tab = tab["ntri"], tab["edges"]
     thres = float(np.float32(surface_thres))
 
     tsdf_t = state.channels["TSDF"].float()
     obs_t = state.channels["TSDF_observed"] > 0
     blk = state.block_active & (state.block_coords[:, 0] == s_id)
-    blk[-1] = False
+    blk[-1].fill_(False)
 
     # ---- phase 0: compact surface blocks --------------------------------
     anchor = obs_t & (tsdf_t < thres)
@@ -189,7 +256,7 @@ def extract_mesh(cfg: TSDFConfig, max_triangles: int, step: int,
     bvalid = torch.arange(cap, device=dev) < bkept
     origin_c = block_origin_voxel(spec, state.block_coords[sl])   # (cap, 3)
     intra = _intra_offsets(V, dev)                                 # (V3, 3)
-    corners_np = torch.from_numpy(CUBE_CORNERS).to(dev)
+    corners_np = tab["corners"]
 
     # ---- corner sampling --------------------------------------------------
     if step == 1:
@@ -205,9 +272,9 @@ def extract_mesh(cfg: TSDFConfig, max_triangles: int, step: int,
 
         # unobserved / missing neighbours read TSDF 0, observed 0
         tsdf_src = torch.where(obs_t, tsdf_t, 0.0)
-        tsdf_src[-1] = 0.0
+        tsdf_src[-1].fill_(0.0)
         obs_src = obs_t.clone()
-        obs_src[-1] = False
+        obs_src[-1].fill_(False)
         cv = _corner_values_halo(halo(tsdf_src.reshape(nb, V, V, V), 0.0),
                                  V).reshape(cap, V3, 8)
         cobs = _corner_values_halo(halo(obs_src.reshape(nb, V, V, V), False),
@@ -217,7 +284,7 @@ def extract_mesh(cfg: TSDFConfig, max_triangles: int, step: int,
             comps = []
             for c in range(3):
                 src = col_t[:, c, :].clone()
-                src[-1] = 0.0
+                src[-1].fill_(0.0)
                 comps.append(_corner_values_halo(
                     halo(src.reshape(nb, V, V, V), 0.0), V).reshape(
                         cap, V3, 8))
@@ -241,8 +308,8 @@ def extract_mesh(cfg: TSDFConfig, max_triangles: int, step: int,
     # ---- phase A: per-cell triangle counts ---------------------------------
     C = cap * V3
     inside = (cv < 0.0).reshape(C, 8)
-    pow2 = torch.tensor([1, 2, 4, 8], dtype=torch.int32, device=dev)
-    tets = torch.from_numpy(TETS).long().to(dev)
+    pow2 = tab["pow2"]
+    tets = tab["tets"]
 
     def tet_case(ins, t):
         return (ins[:, tets[t]].to(torch.int32) * pow2).sum(dim=-1)
@@ -293,7 +360,7 @@ def extract_mesh(cfg: TSDFConfig, max_triangles: int, step: int,
     # normals: central-difference TSDF gradient at round(p); unallocated
     # voxels read 0
     vijk = torch.round(vpos).to(torch.int32)                      # (T, 3, 3)
-    offs = torch.from_numpy(_NORMAL_OFFS).to(dev)
+    offs = tab["offs"]
     probe = vijk[:, :, None, :] + offs[None, None]                # (T,3,6,3)
     tv = _lookup(spec, state, "TSDF", s_id, probe).float()
     grad = torch.stack([tv[..., 0] - tv[..., 1], tv[..., 2] - tv[..., 3],

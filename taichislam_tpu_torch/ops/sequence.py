@@ -29,33 +29,34 @@ the dirty set and the pending wavefront, the JAX scan body):
   which the caller reads once per window. The kernels inside are K1 (bins
   and march sites) and K3, or K2 at a budget of 1.
 
-Graphs live in ``graph_cache`` (:class:`FrameGraphCache`), keyed as JAX
-keys its jit cache (the cfg with its buckets, the ESDF budget and block
-cap, the active submap, the frame shapes, the device) and also on the
-addresses of the state tensors the graph writes; a few entries, least
-recently used first out, an evicted graph's memory pool freed. Before its
+Graphs live in ``graph_cache`` (an ``ops/graphs.UnitCache`` of
+:class:`FrameGraph` entries), keyed as JAX keys its jit cache (the cfg
+with its buckets, the ESDF budget and block cap, the active submap, the
+frame shapes, the device) and also on the addresses of the state tensors
+the graph writes; a few entries, least recently used first out, an
+evicted graph's memory back in the device's shared graph pool. Before its
 capture a graph's body runs once eagerly on a scratch clone of the state,
 so that the kernels build and set their one-time attributes outside the
 capture while the map is written once. The capture uses
 ``capture_error_mode="thread_local"`` (a submap finalize thread may use
 CUDA meanwhile). A failed capture or replay raises: nothing falls back to
-the eager loop, which only the ``*_ref`` names reach.
+the eager loop, which only the ``*_ref`` names reach. The frame body calls
+the ops' eager bodies (``integrate_depth_ref``, ``esdf_seed_dirty_ref``,
+``esdf_update_ref``), so that the plain loop is eager on the card too.
 """
 
 from __future__ import annotations
 
-import collections
 import time
-import weakref
 
 import numpy as np
 import torch
 
 from taichislam_tpu_torch.core.config import TSDFConfig
-from taichislam_tpu_torch.core.grid import GridState, clone_state
+from taichislam_tpu_torch.core.grid import GridState
 from taichislam_tpu_torch.ops import esdf as esdf_ops
+from taichislam_tpu_torch.ops import graphs
 from taichislam_tpu_torch.ops import tsdf as tsdf_ops
-from taichislam_tpu_torch.ops.kernels import build
 
 _I32 = torch.int32
 _PARAMS = 30   # per frame: R (9), T (3), K_dep (9), K_color (9)
@@ -73,7 +74,7 @@ def _frame_step(cfg: TSDFConfig, budget, block_cap, state: GridState, es,
     in block mode; ``par`` holds the frame's R, T, K_dep, K_color. Returns
     the frame's stats row [bins_total, dropped, live_lanes(, esdf
     overflow)] (int32) and its touched blocks."""
-    state, st = tsdf_ops.integrate_depth(
+    state, st = tsdf_ops.integrate_depth_ref(
         cfg, state, depth, tex, par[0:9].view(3, 3), par[9:12],
         par[12:21], par[21:30], active_submap)
     row = [st["num_bins"].to(_I32) + st["bins_dropped"].to(_I32),
@@ -82,10 +83,11 @@ def _frame_step(cfg: TSDFConfig, budget, block_cap, state: GridState, es,
            st["live_lanes"].to(_I32)]
     if es is not None:
         esdf, fixed, pending, seen_t, seen_o = es
-        dirty, _, _ = esdf_ops.esdf_seed_dirty(cfg, state, seen_t, seen_o,
-                                               st["touched_blocks"])
+        dirty, _, _ = esdf_ops.esdf_seed_dirty_ref(cfg, state, seen_t,
+                                                   seen_o,
+                                                   st["touched_blocks"])
         # consume-once snapshot seeds (see ops/esdf.py esdf_update)
-        _, _, _, _, changed, overflow = esdf_ops.esdf_update(
+        _, _, _, _, changed, overflow = esdf_ops.esdf_update_ref(
             cfg, budget, block_cap, state, esdf, fixed, active_submap,
             dirty | pending, tsdf_src=seen_t, obs_src=seen_o)
         pending.copy_(changed)
@@ -124,14 +126,10 @@ def _textures(cfg, textures, F):
     return tex
 
 
-def _on_host(x):
-    return not (isinstance(x, torch.Tensor) and x.device.type != "cpu")
-
-
 def _params(Rs, Ts, K_dep, K_color, F, dev):
     """(F, 30) f32 on ``dev``: each frame's R, T, K_dep, K_color. Host
     inputs go up in one copy through pinned memory."""
-    if all(_on_host(x) for x in (Rs, Ts, K_dep, K_color)):
+    if all(graphs.on_host(x) for x in (Rs, Ts, K_dep, K_color)):
         def h(x):
             return np.asarray(x.numpy() if isinstance(x, torch.Tensor)
                               else x, np.float32)
@@ -233,132 +231,46 @@ accumulate_frame_verdict_ref = accumulate_frame_verdict
 # the graph path
 # ---------------------------------------------------------------------------
 
-def _state_tensors(state, es):
-    ts = [state.table, state.block_coords, state.block_active,
-          state.num_blocks, state.alloc_overflow]
-    ts += [state.channels[k] for k in sorted(state.channels)]
-    return ts + (list(es) if es is not None else [])
-
-
-def _stage(slot, frame):
-    """Copy one frame into a static slot in stream order: a device tensor
-    device to device, anything else through pinned memory. The pinned
-    block comes from PyTorch's caching host allocator, which records the
-    copy's event and hands the block out again only once the copy has
-    completed, so no staging buffer is overwritten early."""
-    if tuple(frame.shape) != tuple(slot.shape):
-        raise ValueError(f"frame shape {tuple(frame.shape)}: this window's "
-                         f"graph takes {tuple(slot.shape)}")
-    if isinstance(frame, torch.Tensor) and frame.device.type == "cuda":
-        slot.copy_(frame)
-        return
-    if isinstance(frame, torch.Tensor):
-        frame = frame.numpy()
-    host = np.ascontiguousarray(frame, dtype=_NP_DTYPE[slot.dtype])
-    slot.copy_(torch.from_numpy(host).pin_memory(), non_blocking=True)
-
-
-class FrameGraph:
-    """One captured frame body: its static input slots (depth, texture,
-    the 30 pose and intrinsics floats), its window accumulators (``pack``,
-    the running maxima, and ``union``, the touched blocks) and the launch
-    tally each replay adds to the kernels' counters."""
+class FrameGraph(graphs.Entry):
+    """One key's captured frame body: the static input slots (depth,
+    texture, the 30 pose and intrinsics floats), the window accumulators
+    (``pack``, the running maxima, and ``union``, the touched blocks) and
+    the graph ``"frame"``, whose replays add its launch tally to the
+    kernels' counters."""
 
     def __init__(self, cfg, budget, block_cap, active_submap, tensors,
                  depth_shape, tex_shape, n_stats, dev):
+        super().__init__(tensors, {
+            "depth": (depth_shape, torch.int32),
+            "tex": (tex_shape, torch.uint8),
+            "par": ((_PARAMS,), torch.float32)}, dev)
         self.cfg, self.budget, self.block_cap = cfg, budget, block_cap
         self.active_submap = active_submap
-        self.refs = [weakref.ref(t) for t in tensors]
-        self.depth = torch.zeros(depth_shape, dtype=_I32, device=dev)
-        self.tex = torch.zeros(tex_shape, dtype=torch.uint8, device=dev)
-        self.par = torch.zeros((_PARAMS,), dtype=torch.float32, device=dev)
         self.pack = torch.zeros((n_stats,), dtype=_I32, device=dev)
         self.union = torch.zeros((cfg.grid.max_blocks + 1,),
                                  dtype=torch.bool, device=dev)
-        self.graph = None
-        self.tally = []
 
-    def holds(self, tensors):
-        """Whether the graph writes exactly these (live) tensors."""
-        return len(tensors) == len(self.refs) and all(
-            r() is t for r, t in zip(self.refs, tensors))
-
-    def alive(self):
-        return all(r() is not None for r in self.refs)
-
-    def _body(self, state, es, pack, union):
+    def _body(self, written, slots):
+        state, pack, union, *es = written
         row, touched = _frame_step(self.cfg, self.budget, self.block_cap,
-                                   state, es, self.depth, self.tex, self.par,
+                                   state, tuple(es) or None, slots["depth"],
+                                   slots["tex"], slots["par"],
                                    self.active_submap)
         torch.maximum(pack, row, out=pack)
         union.logical_or_(touched)
 
-    def capture(self, state, es):
-        """Warm up on a scratch clone of the state (kernels built, their
-        first-call attributes set), then capture the body on the real
-        tensors. Raises when the capture fails."""
-        scratch = clone_state(state)
-        scratch_es = None if es is None else tuple(t.clone() for t in es)
-        self._body(scratch, scratch_es, self.pack.clone(),
-                   self.union.clone())
-        torch.cuda.synchronize(self.depth.device)
-        del scratch, scratch_es
-        graph = torch.cuda.CUDAGraph()
-        with build.capture_tally() as tally:
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                self._body(state, es, self.pack, self.union)
-        self.graph, self.tally = graph, tally
-
-    def replay(self):
-        self.graph.replay()
-        build.add_counts(self.tally)
-
-    def release(self):
-        if self.graph is not None:
-            self.graph.reset()
-        self.graph = None
+    def capture(self, cache, state, es):
+        """Warm up on a scratch clone of the state and the accumulators
+        (kernels built, their first-call attributes set), then capture the
+        body on the real tensors. Raises when the capture fails."""
+        t0 = time.perf_counter()
+        written = (state, self.pack, self.union) + tuple(es or ())
+        cache.warm_up(self._body, written, self.slots, self.pack.device)
+        cache.capture(self, "frame", lambda: self._body(written, self.slots),
+                      t0)
 
 
-class FrameGraphCache:
-    """Captured frame bodies by key, at most ``size``, the least recently
-    used evicted first (its graph reset, so that its memory pool is
-    freed), and entries whose state tensors died dropped. ``captures``,
-    ``capture_ms`` (host wall time of the captures, their warm-up
-    included) and ``replays`` count since the last :meth:`reset_counts`."""
-
-    def __init__(self, size: int = 4):
-        self.size = size
-        self.entries = collections.OrderedDict()
-        self.reset_counts()
-
-    def reset_counts(self):
-        self.captures = self.replays = 0
-        self.capture_ms = 0.0
-
-    def clear(self):
-        while self.entries:
-            self.entries.popitem(last=False)[1].release()
-
-    def _drop(self, key):
-        self.entries.pop(key).release()
-
-    def get(self, key, tensors, make):
-        for k in [k for k, e in self.entries.items() if not e.alive()]:
-            self._drop(k)
-        entry = self.entries.get(key)
-        if entry is not None and not entry.holds(tensors):
-            self._drop(key)
-            entry = None
-        if entry is None:
-            entry = make()
-            self.entries[key] = entry
-            while len(self.entries) > self.size:
-                self._drop(next(iter(self.entries)))
-        self.entries.move_to_end(key)
-        return entry
-
-
-graph_cache = FrameGraphCache()
+graph_cache = graphs.UnitCache("sequence", size=4)
 
 
 def _window_graph(cfg, budget, block_cap, state, es, depths, textures, Rs,
@@ -369,7 +281,7 @@ def _window_graph(cfg, budget, block_cap, state, es, depths, textures, Rs,
     tex = _textures(cfg, textures, F)
     depth_shape = tuple(frames[0].shape)
     tex_shape = (1, 1, 3) if tex is None else tuple(tex[0].shape)
-    tensors = _state_tensors(state, es)
+    tensors = graphs.leaves((state,) + (tuple(es) if es is not None else ()))
     active = int(active_submap)
     key = (cfg, budget, block_cap, active, depth_shape, tex_shape, str(dev),
            tuple(t.data_ptr() for t in tensors))
@@ -381,17 +293,13 @@ def _window_graph(cfg, budget, block_cap, state, es, depths, textures, Rs,
     g.pack.zero_()
     g.union.zero_()
     for f in range(F):
-        _stage(g.depth, frames[f])
+        graphs.stage(g.slots["depth"], frames[f])
         if tex is not None:
-            _stage(g.tex, tex[f])
-        g.par.copy_(par[f])
-        if g.graph is None:
-            t0 = time.perf_counter()
-            g.capture(state, es)
-            graph_cache.captures += 1
-            graph_cache.capture_ms += 1000 * (time.perf_counter() - t0)
-        g.replay()
-        graph_cache.replays += 1
+            graphs.stage(g.slots["tex"], tex[f])
+        g.slots["par"].copy_(par[f])
+        if "frame" not in g.graphs:
+            g.capture(graph_cache, state, es)
+        graph_cache.replay(g, "frame")
     return _stats(g.pack.clone(), g.union.clone())
 
 

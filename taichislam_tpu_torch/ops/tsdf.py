@@ -15,7 +15,11 @@ results; and the texture combines as the per-frame weighted mean of the
 JAX package's kernel path, not the last-writer scatter of its XLA path.
 
 ``integrate``, ``integrate_depth``, ``integrate_pcl`` and ``init_sphere``
-update the state's tensors IN PLACE and return the state (and stats).
+update the state's tensors IN PLACE and return the state (and stats). On
+the card ``integrate_depth`` and ``integrate_pcl`` are units of
+``ops/graphs.py``: one CUDA graph replay per call (the JAX package's jitted
+functions); their ``*_ref`` twins are the eager bodies, which CPU tensors
+take.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from taichislam_tpu_torch.core import geometry
@@ -34,6 +39,7 @@ from taichislam_tpu_torch.core.grid import (GridState, allocate_blocks,
                                             flat_voxel_index, lookup_slots,
                                             make_grid_state, scatter_max,
                                             voxel_to_block_c)
+from taichislam_tpu_torch.ops import graphs
 from taichislam_tpu_torch.ops.kernels.seg_accum import (
     SENTINEL_BLOCK, segmented_block_reduce)
 
@@ -331,28 +337,90 @@ def _rotate(R, px, py, pz):
                  for a in range(3))
 
 
-def integrate_depth(cfg: TSDFConfig, state: GridState, depth_mm, texture,
-                    R, T, K_dep, K_color, active_submap: int):
-    """One depth frame (uint16 mm, or any integer tensor) with its (h, w, 3)
-    texture (ignored when untextured) fused at sensor pose (R, T) in the
-    submap frame; ``R``, ``T``, ``K_dep``, ``K_color`` are f32 tensors on the
-    state's device. In place; returns (state, stats)."""
+def integrate_depth_ref(cfg: TSDFConfig, state: GridState, depth_mm,
+                        texture, R, T, K_dep, K_color, active_submap: int):
+    """The eager body of :func:`integrate_depth` (every device). Inputs
+    not on the state's device are moved there."""
+    dev = state.table.device
+    depth_mm = graphs.to_device(depth_mm, dev, np.int32)
+    if cfg.texture_enabled:
+        texture = graphs.to_device(texture, dev, np.uint8)
+    R, T, K_dep, K_color = (graphs.to_device(x, dev, np.float32)
+                            for x in (R, T, K_dep, K_color))
     (px, py, pz), dep, color, valid = depth_to_points_c(
         cfg, depth_mm, texture, K_dep, K_color)
     return integrate(cfg, state, _rotate(R, px, py, pz), dep, color, valid,
                      T, active_submap)
 
 
-def integrate_pcl(cfg: TSDFConfig, state: GridState, xyz, rgb, R, T,
-                  active_submap: int):
-    """Point-cloud frame: points are rotated (not translated), gated on
-    ``|R @ p| < max_ray_length``, and z := |R @ p|. In place; returns
-    (state, stats)."""
+INTEGRATE_DEPTH = graphs.UnitCache("integrate_depth", size=4)
+INTEGRATE_PCL = graphs.UnitCache("integrate_pcl", size=4)
+
+
+def integrate_depth(cfg: TSDFConfig, state: GridState, depth_mm, texture,
+                    R, T, K_dep, K_color, active_submap: int):
+    """One depth frame (uint16 mm, or any integer tensor) with its (h, w, 3)
+    texture (ignored when untextured) fused at sensor pose (R, T) in the
+    submap frame; ``R``, ``T``, ``K_dep``, ``K_color`` are f32. In place;
+    returns (state, stats). CPU state: :func:`integrate_depth_ref`. State
+    on the card: one replay of the unit's CUDA graph (``ops/graphs.py``),
+    the frame, texture, pose and intrinsics staged into its slots (host
+    arrays through pinned memory, tensors on the card device to device)."""
+    if graphs.eager(state.table):
+        return integrate_depth_ref(cfg, state, depth_mm, texture, R, T,
+                                   K_dep, K_color, active_submap)
+    dev = state.table.device
+    inputs = {"depth": (depth_mm, torch.int32),
+              "par": (graphs.params((R, T, K_dep, K_color), dev),
+                      torch.float32)}
+    if cfg.texture_enabled:
+        inputs["tex"] = (texture, torch.uint8)
+    active = int(active_submap)
+
+    def body(w, s):
+        par = s["par"]
+        return integrate_depth_ref(
+            cfg, w[0], s["depth"], s.get("tex"), par[0:9].view(3, 3),
+            par[9:12], par[12:21], par[21:30], active)
+    return INTEGRATE_DEPTH.call(("integrate_depth", cfg, active), body,
+                                written=(state,), inputs=inputs)
+
+
+def integrate_pcl_ref(cfg: TSDFConfig, state: GridState, xyz, rgb, R, T,
+                      active_submap: int):
+    """The eager body of :func:`integrate_pcl` (every device). Inputs not
+    on the state's device are moved there."""
+    dev = state.table.device
+    xyz, rgb, R, T = (graphs.to_device(x, dev, np.float32)
+                      for x in (xyz, rgb, R, T))
     pts, color = pcl_to_points(cfg, xyz, rgb)
     m = _rotate(R, pts[:, 0], pts[:, 1], pts[:, 2])
     z = sqrt_rn(dot3(m[0], m[0], m[1], m[1], m[2], m[2]))
     return integrate(cfg, state, m, z, color, z < cfg.max_ray_length, T,
                      active_submap)
+
+
+def integrate_pcl(cfg: TSDFConfig, state: GridState, xyz, rgb, R, T,
+                  active_submap: int):
+    """Point-cloud frame: points are rotated (not translated), gated on
+    ``|R @ p| < max_ray_length``, and z := |R @ p|. In place; returns
+    (state, stats). CPU state: :func:`integrate_pcl_ref`; state on the
+    card: one graph replay per cloud size, as :func:`integrate_depth`."""
+    if graphs.eager(state.table):
+        return integrate_pcl_ref(cfg, state, xyz, rgb, R, T, active_submap)
+    dev = state.table.device
+    inputs = {"xyz": (xyz, torch.float32),
+              "par": (graphs.params((R, T), dev), torch.float32)}
+    if cfg.texture_enabled:
+        inputs["rgb"] = (rgb, torch.float32)
+    active = int(active_submap)
+
+    def body(w, s):
+        par = s["par"]
+        return integrate_pcl_ref(cfg, w[0], s["xyz"], s.get("rgb", s["xyz"]),
+                                 par[0:9].view(3, 3), par[9:12], active)
+    return INTEGRATE_PCL.call(("integrate_pcl", cfg, active), body,
+                              written=(state,), inputs=inputs)
 
 
 def init_sphere(cfg: TSDFConfig, state: GridState, active_submap: int = 0,

@@ -4,9 +4,13 @@
 Phases:
   1. card line (nvidia-smi) and the kernel build (nvcc, from csrc/), with
      each kernel's registers, local memory (stack frame, spills) and static
-     shared memory as ptxas reported them (the V > 20 builds k2_kernel_gm
-     and k3_loop_kernel<-1> included) and K2/K3's dynamic shared memory
-     per row, or device-memory scratch per CTA past V = 20;
+     shared memory as ptxas reported them (the V > 20 builds included: the
+     cluster builds k2_kernel_cl and k3_loop_kernel_cl, and the device-memory
+     builds k2_kernel_gm and k3_loop_kernel<-1> past V = 40), K2/K3's
+     dynamic shared memory per row, per CTA of a row's cluster at V = 24
+     and 32, or device-memory scratch per CTA past V = 40, and the clusters
+     that fit on the card at once at V = 24 and 32
+     (cudaOccupancyMaxActiveClusters);
   2. each hand-written kernel against its plain PyTorch twin on the card,
      at the main path's shapes (K1 at its five call sites, two calls
      bit-identical, and with a lane cap inside a block; K2 at 264 and 1056
@@ -14,9 +18,12 @@ Phases:
      idle, on a single 8-row slab with no gate and at V = 8 and 7; K3 at
      264 and 1056 rows, budgets 3 and 32, and at V = 8 and 7, stats equal
      to the twin's; V = 16 and 8 are compiled with constant shapes, V = 7
-     takes the runtime-shape build; K2 and K3 also at 264 rows with V = 24
-     and 32, the device-memory build, equal to the twin exactly), with both
-     times (CUDA events,
+     takes the runtime-shape build; K2 with and without scans and K3 at
+     budgets 3 and 32 also past V = 20, equal to the twin exactly: the
+     cluster builds at V = 21 and 28 (runtime shapes, 2 and 3 CTAs a row),
+     24 and 32 (constant shapes, 2 and 4 CTAs) over 264 rows and V = 24
+     over 1056, the device-memory build at V = 44 over 16 rows, the
+     profiler naming the build each V runs), with both times (CUDA events,
      median), the bound (bytes or operations, counted from this run's
      inputs: valid lanes, the rows and updating voxels each call or sweep
      computes), the library yardstick
@@ -70,9 +77,10 @@ Phases:
      CPU: node, edge and frontier counts exact, facelets within 1e-5; and
      the TopoGen worker in a spawn process with a Manager dict on the card,
      edge lines back;
- 13. DenseESDF at V = 24 (block mode only, so K3's device-memory build) on
-     the bench-sized map, 4 frames, the profiler recording that build, card
-     against CPU as in phase 7;
+ 13. DenseESDF at V = 24 (block mode only, so K3's cluster build
+     k3_loop_kernel_cl<24>) on the bench-sized map, 4 frames, the profiler
+     recording that build and the launch counts naming it, card against CPU
+     as in phase 7; then the same 4 frames again for their recast ms/frame;
  14. the bundle-adjustment demo's gradient descent on the card to the JAX
      demo's convergence test, against the CPU; NNLS.solve_lm on the linear
      fit and the rotation BA of tests/test_opti.py, card against CPU within
@@ -361,13 +369,16 @@ def kernel_name(k):
     return k.split("(")[0]
 
 
-def profile_line(tag, fn, ms, prefix, expect=()):
+def profile_line(tag, fn, ms, prefix, expect=(), build=None):
     """Print the kernels of one call (count and device ms by name) beside
     its event time; require that the call ran only kernels whose names hold
-    ``prefix`` and no aten op other than allocation. Returns (kernels per
-    call, device ms), both None when no window recorded a CUDA kernel (the
-    call's kernel has already matched its twin; only its device time is
-    then not measured)."""
+    ``prefix``, the kernel ``build`` (a name with its template argument)
+    among them when given, and no aten op other than allocation. Returns
+    (kernels per call, device ms), both None when no window recorded a CUDA
+    kernel (the call's kernel has already matched its twin; only its device
+    time is then not measured)."""
+    if build:
+        expect = (*expect, build)
     kernels, aten = profile_call(fn, expect)
     require(not aten, f"{tag}: aten ops on the kernel path {aten}")
     if not kernels:
@@ -389,6 +400,8 @@ def profile_line(tag, fn, ms, prefix, expect=()):
         f"allocation {aten or 'none'}")
     require(all(prefix in k for k in kernels),
             f"{tag}: kernels outside csrc/ {list(kernels)}")
+    require(build is None or any(build + "(" in k for k in kernels),
+            f"{tag}: {build} not among {list(kernels)}")
     return n_k, dev_ms
 
 
@@ -565,10 +578,36 @@ def k2_bound(V, slab_act, side, scans):
 
 def sweep_shapes():
     """(rows, V) of K2 and K3 in phase 2: the bench's 264 rows and 1056 at
-    V = 16, and 264 rows at V = 24 and 32."""
+    V = 16; the cluster builds at V = 21 and 28 (runtime shapes, 2 and 3
+    CTAs a row) and 24 and 32 (constant shapes, 2 and 4) over 264 rows, and
+    V = 24 over 1056; the device-memory build at V = 44 over 16 rows."""
     from kernel_ab import K2_ROWS, SWEEP_KW
     V = SWEEP_KW["V"]
-    return [(K2_ROWS, V), (4 * K2_ROWS, V), (K2_ROWS, 24), (K2_ROWS, 32)]
+    return [(K2_ROWS, V), (4 * K2_ROWS, V), (K2_ROWS, 21), (K2_ROWS, 24),
+            (K2_ROWS, 28), (K2_ROWS, 32), (4 * K2_ROWS, 24), (16, 44)]
+
+
+def build_entries(kernel, shapes, main_key, replaces):
+    """The kernels line's entries of the V > 20 builds of K2 or K3
+    (``kernel`` "k2" or "k3"), one per build, from phase 2's ``shapes``:
+    the times and bound of its first shape with ``main_key`` in its name
+    (scans, budget 3), its largest error, and all its shapes. Launches are
+    filled in from phase 13."""
+    from taichislam_tpu_torch.ops.kernels import esdf_sweep as ks
+    out = []
+    for b in dict.fromkeys(ks.kernel_build(kernel, sh["V"]) for sh in shapes
+                           if sh["V"] > ks.MAX_V):
+        mine = [sh for sh in shapes if sh["V"] > ks.MAX_V and
+                ks.kernel_build(kernel, sh["V"]) == b]
+        main = next(sh for sh in mine if main_key in sh["shape"])
+        out.append(dict(
+            name=b, route="cuda", source="taichislam_tpu_torch/csrc/"
+            "esdf_sweep.cu", replaces=replaces, launches=0,
+            max_abs_err=max(sh["max_abs_err"] for sh in mine),
+            ms=main["ms"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            library_ms=None, shapes=mine))
+    return out
 
 
 def check_esdf(dev, results):
@@ -577,8 +616,8 @@ def check_esdf(dev, results):
     from kernel_ab import SWEEP_KW, k2_case, k3_case
 
     # K2 at the bench's 264 rows (one wave) and at 1056 rows (past it),
-    # and at V = 24 and 32 (rows too large for shared memory: the
-    # device-memory build), which must equal the twin exactly
+    # and past V = 20 (the cluster builds, and the device-memory build at
+    # V = 44), which must equal the twin exactly
     err2, k2 = 0.0, []
     for N, V in sweep_shapes():
         kw = dict(SWEEP_KW, V=V)
@@ -605,7 +644,8 @@ def check_esdf(dev, results):
             n_k, dev_ms = profile_line(
                 f"K2 {tag} scans={scans}",
                 lambda: ks.esdf_sweep(esdf, enc, side, slab_act,
-                                      with_scans=scans, **kw), ms, "k2_")
+                                      with_scans=scans, **kw), ms, "k2_",
+                build=ks.kernel_build("k2", V))
             k2.append(dict(shape=f"{tag} scans={scans}", V=V, ms=ms,
                            device_ms=dev_ms, plain_ms=pms, bound_ms=b_ms,
                            bound_by=b_by, kernels_per_call=n_k,
@@ -616,11 +656,13 @@ def check_esdf(dev, results):
     results["K2"] = dict(max_abs_err=err2, ms=main["ms"],
                          plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
                          bound_by=main["bound_by"], library_ms=None,
-                         shapes=k2)
+                         shapes=k2, builds=build_entries(
+                             "k2", k2, "scans=True",
+                             "taichislam_tpu/ops/pallas/esdf_sweep.py:588"))
 
     # K3 at the bench's 264 rows and at 1056 rows (more rows than CTAs fit
-    # on the card at once, so CTAs take rows by grid stride), and at V = 24
-    # and 32 (the device-memory build)
+    # on the card at once, so CTAs take rows by grid stride), and past
+    # V = 20 (the cluster builds, and the device-memory build at V = 44)
     err3, shapes = 0.0, []
     for n_rows, V in sweep_shapes():
         kw = dict(SWEEP_KW, V=V)
@@ -661,7 +703,7 @@ def check_esdf(dev, results):
             n_k, dev_ms = profile_line(
                 f"K3 {tag} budget {budget}",
                 lambda: ks.esdf_sweep_loop(e3, n3, nsl, upd, **lk), ms,
-                "k3_loop_kernel")
+                "k3_loop_kernel", build=ks.kernel_build("k3", V))
             require(n_k in (1, None), f"K3: {n_k} kernels in one call")
             shapes.append(dict(shape=f"{tag} budget {budget}", V=V,
                                sweeps=sweeps, ms=ms, device_ms=dev_ms,
@@ -673,7 +715,9 @@ def check_esdf(dev, results):
                          plain_ms=first["plain_ms"],
                          bound_ms=first["bound_ms"],
                          bound_by=first["bound_by"], library_ms=None,
-                         shapes=shapes)
+                         shapes=shapes, builds=build_entries(
+                             "k3", shapes, "budget 3",
+                             "taichislam_tpu/ops/pallas/esdf_sweep.py:489"))
 
 
 def check_esdf_edges(dev):
@@ -725,8 +769,11 @@ def check_esdf_edges(dev):
 
 def build_report():
     """Registers, local memory (stack frame, spills) and shared memory per
-    kernel, as ptxas reported them in build/kernels/build.log, and K2/K3's
-    dynamic shared memory per row at V = 16 and 8."""
+    kernel, as ptxas reported them in build/kernels/build.log, K2/K3's
+    dynamic shared memory per row at V = 16 and 8, per CTA of a row's
+    cluster at V = 24 and 32 with the clusters that fit on the card at
+    once, and per CTA of device-memory scratch at V = 44."""
+    import ctypes
     import re
     from taichislam_tpu_torch.ops.kernels import build
     from taichislam_tpu_torch.ops.kernels import esdf_sweep as ks
@@ -751,12 +798,25 @@ def build_report():
                         f"{st.group(1) if st else 0} B static{spill}")
             name = None
     V = SWEEP_KW["V"]
+    lib = build.library()
+    cl = []
+    for Vc in ks.CLUSTER_FAST_V:
+        C = ks.cluster_ctas(Vc)
+        n = []
+        for loop in (0, 1):
+            got = ctypes.c_int(0)
+            build.check(lib.esdf_max_clusters(Vc, loop, ctypes.byref(got)),
+                        "esdf_max_clusters")
+            n.append(got.value)
+        cl.append(f"V = {Vc}: {C} CTAs of {ks.row_cluster_smem_bytes(Vc, C)} "
+                  f"B, {n[0]} clusters of K2 / {n[1]} of K3 at once")
     log(f"[phase1] ptxas per kernel: {'; '.join(rows)}; K2/K3 dynamic "
         f"shared memory per row at V = {V}: {ks.row_smem_bytes(V)} B, at "
-        f"V = 8: {ks.row_smem_bytes(8)} B; past V = {ks.MAX_V} (k2_kernel_gm, "
-        f"k3_loop_kernel<-1>) the row lives in device memory, "
-        f"{ks.row_scratch_bytes(24)} B per CTA at V = 24 and "
-        f"{ks.row_scratch_bytes(32)} B at V = 32")
+        f"V = 8: {ks.row_smem_bytes(8)} B; past V = {ks.MAX_V} a row per "
+        f"cluster (k2_kernel_cl, k3_loop_kernel_cl): {'; '.join(cl)} "
+        f"(cudaOccupancyMaxActiveClusters); past V = {ks.MAX_CLUSTER_V} "
+        f"(k2_kernel_gm, k3_loop_kernel<-1>) the row lives in device memory, "
+        f"{ks.row_scratch_bytes(44)} B per CTA at V = 44")
 
 
 # ---------------------------------------------------------------------------
@@ -1643,12 +1703,14 @@ def topo_worker_phase(path, seed, dev, timeout_s=300):
 # ---------------------------------------------------------------------------
 
 # the bench-sized node map with 24-voxel blocks and the block-mode ESDF only
-# (K3's device-memory build); 1024 blocks hold the 4 frames
+# (K3's cluster build); 1024 blocks hold the 4 frames
 V24_MAP = dict(BENCH_MAP, num_voxel_per_blk_axis=24, esdf_dense_max_voxels=0,
                max_blocks=1024)
 
 
-def v24_run(d, frames, texs, n=CPU_FRAMES):
+def v24_run(d, frames, texs, n=CPU_FRAMES, timer=None):
+    """The V = 24 map over ``n`` frames: (model, per-frame ESDF mode and
+    sweeps); ``timer`` marks each frame's recast."""
     from taichislam_tpu_torch.models.dense_esdf import DenseESDF
     depth, Rs, Ts = frames
     m = DenseESDF(**V24_MAP, device=d)
@@ -1656,41 +1718,53 @@ def v24_run(d, frames, texs, n=CPU_FRAMES):
     m.set_color_camera_intrinsic(KCOLOR)
     recs = []
     for f in range(n):
+        if timer:
+            timer.mark()
         m.recast_depth_to_map(Rs[f], Ts[f], depth[f], texs[f])
         recs.append((m._esdf_last_mode, m.last_esdf_sweeps))
+    if timer:
+        timer.mark()
     return m, recs
 
 
-def v24_phase(dev, frames, texs, launches):
+def v24_phase(dev, smi, frames, texs, launches):
     """Phase 13: DenseESDF at V = 24 on the bench-sized map, 4 frames on
-    the card (under torch.profiler, which must record the V > 20 K3 build)
-    and on the CPU: the phase-7 gate."""
+    the card (under torch.profiler, which must record K3's cluster build
+    k3_loop_kernel_cl<24>, the build every K3 launch counted) and on the
+    CPU: the phase-7 gate; then the card's run again for its recast
+    ms/frame. Returns the launches by kernel build."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from taichislam_tpu_torch.ops.kernels import esdf_sweep as ks
     from taichislam_tpu_torch.ops.kernels import seg_accum as k1
     counters = (k1.segmented_block_reduce, ks.esdf_sweep, ks.esdf_sweep_loop)
+    build = ks.kernel_build("k3", 24)
     for t in range(PROFILE_TRIES):
         # the same run again when the profiler missed every device event
         time.sleep(0.2 * t)
         for c in counters:
             c.launches = 0
+        ks.esdf_sweep.site_launches.clear()
+        ks.esdf_sweep_loop.site_launches.clear()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             g, grec = v24_run(dev, frames, texs)
             torch.cuda.synchronize()
         got = dict(zip(("K1", "K2", "K3"), (c.launches for c in counters)))
-        cuda = [(a.key, a.count) for a in prof.key_averages()
+        builds = {**ks.esdf_sweep.site_launches,
+                  **ks.esdf_sweep_loop.site_launches}
+        cuda = [(a.key, a.count, a.device_time_total)
+                for a in prof.key_averages()
                 if a.device_type == torch.autograd.DeviceType.CUDA]
         if cuda:
             break
     for k, v in got.items():
         launches[k] += v
-    k3 = [(key, n) for key, n in cuda if "k3_loop_kernel<-1>" in key]
-    require(got["K1"] > 0 and got["K3"] > 0 and k3,
-            f"V = 24: launches {got}, profiler {k3}")
-    kname = k3[0][0].replace("void ", "").replace("(anonymous namespace)::",
-                                                  "").split("(")[0]
+    k3 = [(key, n, us) for key, n, us in cuda if build + "(" in key]
+    require(got["K1"] > 0 and got["K3"] > 0 and k3 and
+            builds == {build: got["K3"]},
+            f"V = 24: launches {got} by build {builds}, profiler {k3}")
+    kname = kernel_name(k3[0][0])
     c, crec = v24_run(torch.device("cpu"), frames, texs)
     require(grec == crec, f"V = 24 card vs CPU: modes/sweeps {grec} vs {crec}")
     require(all(mode == "block" for mode, _ in grec), f"V = 24 modes {grec}")
@@ -1709,8 +1783,17 @@ def v24_phase(dev, frames, texs, launches):
     require(max(errs.values()) <= 4e-3, f"V = 24 card vs CPU: {errs}")
     log(f"[phase13] V = 24 DenseESDF, {CPU_FRAMES} frames: modes/sweeps "
         f"{grec}, {int(gs.num_blocks)} blocks, {int(obs.sum())} ESDF voxels; "
-        f"launches {got}, profiler {k3[0][1]}x {kname}; "
+        f"launches {got} by build {builds}, profiler {k3[0][1]}x {kname} "
+        f"{k3[0][2] / 1000.0:.4f} ms device; "
         f"card vs CPU: table and flags exact, max abs {errs}")
+    timer = Timer(dev)
+    _, again = v24_run(dev, frames, texs, timer=timer)
+    ms = timer.ms()
+    require(again == grec, f"V = 24 again: {again} vs {grec}")
+    log(f"[phase13] V = 24 recast ms/frame {[round(x, 3) for x in ms]}, "
+        f"mean {float(np.mean(ms)):.3f} (CUDA events, a new model; its "
+        f"first frames run the units' eager bodies and captures) ({smi})")
+    return builds
 
 
 # ---------------------------------------------------------------------------
@@ -3908,7 +3991,7 @@ def main():
     topo_cpu_phase(dev, node_loaded, node_path, seed)
     node_path.unlink()
     del node_map, node_loaded
-    v24_phase(dev, (depth_n, Rs_n, Ts_n), texs, launches)
+    v24_builds = v24_phase(dev, smi, (depth_n, Rs_n, Ts_n), texs, launches)
     opti_phase(dev, smi)
 
     # ---- phases 15-18 ----------------------------------------------------
@@ -3951,6 +4034,9 @@ def main():
               "taichislam_tpu/ops/pallas/esdf_sweep.py:588"),
              ("esdf_sweep_loop (K3)", "K3", src + "esdf_sweep.cu",
               "taichislam_tpu/ops/pallas/esdf_sweep.py:489")]
+    for key in ("K2", "K3"):   # phase 13 is the one path to run a V > 20 build
+        for b in results[key]["builds"]:
+            b["launches"] = v24_builds.get(b["name"], 0)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": path, "replaces": rep,
          "launches": launches[key], **results[key]}

@@ -6,9 +6,10 @@ timing of two checkouts of the port on one card.
 ``k3_case`` build the inputs that ``chip_smoke.py`` phase 2 holds each
 kernel against its twin on (numpy, from fixed seeds): K1 at its five call
 sites, K2 and K3 at 264 and 1056 rows. Run as a script, this file times the
-kernels of two checkouts at those shapes, and K2 and K3 at V = 8 over 264
-rows, in turns (old, new, new, old), each turn in its own process that
-imports the port from its checkout:
+kernels of two checkouts at those shapes, and K2 and K3 over 264 rows at
+V = 8 and at V = 24 and 32 (rows past one CTA's shared memory), in turns
+(old, new, new, old), each turn in its own process that imports the port
+from its checkout:
 
     git archive <earlier commit> | tar -x -C build/old
     python3 kernel_ab.py --old build/old \\
@@ -262,9 +263,11 @@ def worker(root: str) -> dict:
               5 if name == "fusion" else 20)
         del args
     # the main path's V = 16 at 264 and 1056 rows, and V = 8 (the block
-    # size of the examples and tests) at 264 rows
+    # size of the examples and tests), 24 and 32 (the rows past one CTA's
+    # shared memory) at 264 rows
     shapes = ((K2_ROWS, 16, ""), (4 * K2_ROWS, 16, ""),
-              (K2_ROWS, 8, " V=8"))
+              (K2_ROWS, 8, " V=8"), (K2_ROWS, 24, " V=24"),
+              (K2_ROWS, 32, " V=32"))
     for N, V, tag in shapes:
         esdf, enc, side, act = (torch.from_numpy(a).to(dev)
                                 for a in k2_case(N, V))

@@ -43,6 +43,7 @@ SIGNATURES = {
                                                             P],
     "esdf_loop_launch": [P] * 7 + [I32] * 2 + [F32] * 7 + [I32] * 3 + [
         P, I32, P],
+    "esdf_max_clusters": [I32, I32, ctypes.POINTER(I32)],
 }
 
 

@@ -14,16 +14,20 @@ Both kernels are in ``csrc/esdf_sweep.cu``. ``esdf_sweep_ref`` and
 ``esdf_sweep_loop_ref`` are plain PyTorch versions with the same
 signatures; the wrappers take them only for CPU tensors. The update side
 mask must be zero on halo positions (interior-only), as in the JAX
-package. Up to ``MAX_V`` a row lives in the CTA's shared memory; a larger V
+package. Up to ``MAX_V`` a row lives in the CTA's shared memory; up to
+``MAX_CLUSTER_V`` in the shared memory of a thread-block cluster of
+``cluster_ctas(V)`` CTAs, ``row_cluster_smem_bytes(V, C)`` each; a larger V
 runs the kernels' device-memory build, whose row scratch (one
-``row_scratch_bytes(V)`` slice per CTA) the wrappers allocate.
+``row_scratch_bytes(V)`` slice per CTA) the wrappers allocate. Which build
+runs follows from V alone (``kernel_build``); the wrappers count their
+launches by build in ``site_launches``.
 
 The wrappers are capture-safe: their host work (shape checks, the scratch
 size, the SM count) depends on shapes only, their outputs and scratch come
 from the allocator (a graph's pool under capture), the one-time kernel
 attributes are set on the first, eager call, and stream capture takes K3's
-cooperative launch as it is; the launch counters count each replay of a
-captured graph (``build.count``).
+cooperative launch as it is, with or without a cluster dimension; the
+launch counters count each replay of a captured graph (``build.count``).
 """
 
 from __future__ import annotations
@@ -45,6 +49,16 @@ R = 8  # rows per activity slab
 # what a CTA may take on the H100; a larger V keeps it in device memory
 MAX_V = 20
 MAX_SMEM = 227 * 1024
+# the largest V whose row the kernels keep in the shared memory of a
+# portable thread-block cluster of at most MAX_CLUSTER CTAs (kMaxClusterV
+# and kMaxCluster in csrc/esdf_sweep.cu); a larger V keeps it in device
+# memory
+MAX_CLUSTER_V = 40
+MAX_CLUSTER = 8
+# the V compiled with constant shapes (kFastV, kSmallV; kClusterV24,
+# kClusterV32)
+FAST_V, SMALL_V = 16, 8
+CLUSTER_FAST_V = (24, 32)
 # CTAs per SM the kernels' registers are budgeted for (kMinBlocks): the
 # device-memory build runs that many per SM at most
 CTAS_PER_SM = 2
@@ -169,23 +183,60 @@ def sweep_math(h, enc, side, *, W: int, v1: float, gamma: float, eps: float,
     return torch.where(side < 0, new_n, new)
 
 
+def _a16(b: int) -> int:
+    return (b + 15) // 16 * 16
+
+
 def row_smem_bytes(V: int) -> int:
     """Dynamic shared memory of one row in K2 and K3 (``smem_bytes`` in
     csrc/esdf_sweep.cu): the field, the (lo, -hi) pairs, two scan-candidate
     arrays of V^2 lines at pitch V + 1 (plus 16 floats each) and a flag
     byte per voxel, each part 16-byte aligned."""
-    def a16(b):
-        return (b + 15) // 16 * 16
     W3 = (V + 2) ** 3
-    return (a16(W3 * 4) + a16(W3 * 8) + a16(2 * (V * V * (V + 1) + 16) * 4)
-            + W3)
+    return (_a16(W3 * 4) + _a16(W3 * 8) +
+            _a16(2 * (V * V * (V + 1) + 16) * 4) + W3)
 
 
 def row_scratch_bytes(V: int) -> int:
-    """Device-memory scratch of one CTA in the V > MAX_V build
+    """Device-memory scratch of one CTA in the V > MAX_CLUSTER_V build
     (``scratch_bytes`` in csrc/esdf_sweep.cu): the row's shared-memory
     layout rounded up to 16 bytes."""
-    return (row_smem_bytes(V) + 15) // 16 * 16
+    return _a16(row_smem_bytes(V))
+
+
+def cluster_planes(V: int, C: int) -> int:
+    """Interior planes each CTA of a C-CTA cluster owns (``cl_planes``;
+    the last CTA may own fewer)."""
+    return -(-V // C)
+
+
+def row_cluster_smem_bytes(V: int, C: int) -> int:
+    """Dynamic shared memory of one CTA of a row's C-CTA cluster
+    (``cl_smem_bytes`` in csrc/esdf_sweep.cu): the (lo, -hi) pairs of its
+    P owned planes and the two beside them, the owned planes' field and
+    scan candidates (pitch V + 1), the columns' float4 j-line carries and
+    their restart bytes, and the flags of the P + 2 planes."""
+    W2, P, VV = (V + 2) ** 2, cluster_planes(V, C), V * V
+    return (_a16((P + 2) * W2 * 8) + _a16(P * W2 * 4) +
+            _a16(P * V * (V + 1) * 4) + VV * 16 + _a16(VV) + (P + 2) * W2)
+
+
+def cluster_ctas(V: int) -> int:
+    """CTAs of a row's cluster (``cluster_ctas``): the fewest, from 2,
+    whose share fits in MAX_SMEM; 0 when no portable cluster holds it."""
+    return next((C for C in range(2, MAX_CLUSTER + 1)
+                 if row_cluster_smem_bytes(V, C) <= MAX_SMEM), 0)
+
+
+def kernel_build(kernel: str, V: int) -> str:
+    """The CUDA kernel that a launch of ``kernel`` ("k2" or "k3") at V
+    runs, as csrc/esdf_sweep.cu's launch functions choose it."""
+    base = "k2_kernel" if kernel == "k2" else "k3_loop_kernel"
+    if V > MAX_CLUSTER_V:
+        return "k2_kernel_gm" if kernel == "k2" else "k3_loop_kernel<-1>"
+    if V > MAX_V:
+        return f"{base}_cl<{V if V in CLUSTER_FAST_V else 0}>"
+    return f"{base}<{V if V in (FAST_V, SMALL_V) else 0}>"
 
 
 @functools.lru_cache(maxsize=8)
@@ -194,10 +245,10 @@ def _sm_count(index: int) -> int:
 
 
 def _scratch(N, V, dev):
-    """(scratch, CTAs) of a launch: none up to MAX_V; past it a
+    """(scratch, CTAs) of a launch: none up to MAX_CLUSTER_V; past it a
     ``row_scratch_bytes(V)`` slice for each CTA, at most CTAS_PER_SM per SM
     and one per row."""
-    if V <= MAX_V:
+    if V <= MAX_CLUSTER_V:
         return None, 0
     ctas = min(N, CTAS_PER_SM * _sm_count(dev.index if dev.index is not None
                                           else torch.cuda.current_device()))
@@ -273,11 +324,12 @@ def esdf_sweep(esdf_h, enc_h, side_h, slab_act=None, *, V: int, v1: float,
         0 if scratch is None else scratch.data_ptr(), ctas,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "esdf_sweep_launch")
-    build.count(esdf_sweep)
+    build.count(esdf_sweep, kernel_build("k2", V))
     return out
 
 
 esdf_sweep.launches = 0
+esdf_sweep.site_launches = {}   # kernel build -> launches
 
 
 # ---------------------------------------------------------------------------
@@ -414,8 +466,9 @@ def esdf_sweep_loop(esdf_h, enc_hh, nsl27, upd_rows, *, V: int, v1: float,
         0 if scratch is None else scratch.data_ptr(), ctas,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "esdf_loop_launch")
-    build.count(esdf_sweep_loop)
+    build.count(esdf_sweep_loop, kernel_build("k3", V))
     return fld, stats
 
 
 esdf_sweep_loop.launches = 0
+esdf_sweep_loop.site_launches = {}   # kernel build -> launches

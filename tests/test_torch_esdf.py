@@ -35,14 +35,20 @@ KW = dict(map_scale=(6.4, 6.4), voxel_scale=0.1, num_voxel_per_blk_axis=8,
 JCFG = JConfig(pallas_accum="on", pallas_esdf="on", esdf_loop_kernel="off",
                **KW)
 TCFG = TConfig(**KW)
+# 24-voxel blocks: rows past the largest the kernels keep in one CTA's
+# shared memory (their cluster build on the card)
+KW24 = dict(KW, num_voxel_per_blk_axis=24, max_blocks=64)
+JCFG24 = JConfig(pallas_accum="on", pallas_esdf="on",
+                 esdf_loop_kernel="off", **KW24)
+TCFG24 = TConfig(**KW24)
 K = np.array([40.0, 0, 32.0, 0, 40.0, 24.0, 0, 0, 1], np.float32)
 CAP = 64
 SHAPE = (KW["max_blocks"] + 1, 8 ** 3)
 
 
-def _integrate(depth):
-    st = jt.make_tsdf_state(JCFG)
-    st, stats = jt.integrate_depth(JCFG, st, jnp.asarray(depth),
+def _integrate(depth, cfg=JCFG):
+    st = jt.make_tsdf_state(cfg)
+    st, stats = jt.integrate_depth(cfg, st, jnp.asarray(depth),
                                    jnp.zeros((1, 1, 3), jnp.uint8),
                                    jnp.eye(3), jnp.zeros(3), jnp.asarray(K),
                                    jnp.asarray(K), jnp.int32(0))
@@ -55,14 +61,24 @@ def wall():
     return _integrate(np.full((48, 64), 1000, np.uint16))
 
 
+def _slope_depth():
+    jj, ii = np.meshgrid(np.arange(48), np.arange(64), indexing="ij")
+    return (1000 + 4.0 * ii + 2.0 * jj).astype(np.uint16)
+
+
 @pytest.fixture(scope="module")
 def slope():
-    jj, ii = np.meshgrid(np.arange(48), np.arange(64), indexing="ij")
-    return _integrate((1000 + 4.0 * ii + 2.0 * jj).astype(np.uint16))
+    return _integrate(_slope_depth())
 
 
-def _zeros():
-    return (jnp.zeros(SHAPE, jnp.float32), jnp.zeros(SHAPE, jnp.int8))
+@pytest.fixture(scope="module")
+def slope24():
+    """The slope on a map of 24-voxel blocks."""
+    return _integrate(_slope_depth(), JCFG24)
+
+
+def _zeros(shape=SHAPE):
+    return (jnp.zeros(shape, jnp.float32), jnp.zeros(shape, jnp.int8))
 
 
 def _compare_update(cfg_j, cfg_t, budget, jstate, e0, f0, **kw):
@@ -89,10 +105,15 @@ def _compare_update(cfg_j, cfg_t, budget, jstate, e0, f0, **kw):
     return we, wf, wp, int(ws), wc
 
 
-@pytest.mark.parametrize("budget", [2, 6])
-def test_loop_path_matches_jax_per_sweep(slope, budget):
-    _, _, part, sweeps, _ = _compare_update(JCFG, TCFG, budget, slope[0],
-                                            *_zeros())
+@pytest.mark.parametrize("budget,V", [(2, 8), (6, 8), (2, 24)],
+                         ids=["2", "6", "V24-2"])
+def test_loop_path_matches_jax_per_sweep(request, budget, V):
+    """The K3 twin against JAX's per-sweep Pallas path; at V = 24 past
+    the rows one CTA holds (the kernels' cluster build on the card)."""
+    state = request.getfixturevalue("slope" if V == 8 else "slope24")[0]
+    cj, ct = (JCFG, TCFG) if V == 8 else (JCFG24, TCFG24)
+    _, _, part, sweeps, _ = _compare_update(
+        cj, ct, budget, state, *_zeros((cj.max_blocks + 1, V ** 3)))
     assert part.sum() > 100 and sweeps == budget
 
 
@@ -289,7 +310,7 @@ def test_esdf_update_jax_positional_form(slope):
 def test_sweep_twin_matches_pallas_kernel(with_scans, V):
     """K2 twin against esdf_sweep_pallas (interpret) on random fields, at a
     small V, at the main path's V = 16 and at V = 24, past the largest row
-    the kernels keep in shared memory (their device-memory build)."""
+    the kernels keep in one CTA's shared memory (their cluster build)."""
     N = 16
     W = V + 2
     rng = np.random.default_rng(int(with_scans) + V)
@@ -374,6 +395,56 @@ def test_max_v_is_the_largest_row_that_fits():
     assert tk.row_smem_bytes(tk.MAX_V) <= tk.MAX_SMEM < \
         tk.row_smem_bytes(tk.MAX_V + 1)
     assert tk.row_smem_bytes(16) == 110760   # 108 KB: two CTAs per SM
+
+
+def _cu_int(name):
+    """An int constant of csrc/esdf_sweep.cu (``constexpr int name = n``,
+    alone or in a list)."""
+    import re
+    from pathlib import Path
+    src = (Path(tk.__file__).resolve().parents[2] / "csrc" /
+           "esdf_sweep.cu").read_text()
+    return int(re.search(rf"\b{name} = (\d+)[,;]", src).group(1))
+
+
+def test_cluster_rule_fits_every_row_up_to_max_cluster_v():
+    """MAX_CLUSTER_V and MAX_CLUSTER are the CUDA source's; every V from
+    MAX_V + 1 to MAX_CLUSTER_V gets a cluster of 2-8 CTAs whose share of the
+    row fits in a CTA's 227 KB, each CTA owning at least one plane; V = 41
+    fits no portable cluster, so it keeps the device-memory build."""
+    assert _cu_int("kMaxClusterV") == tk.MAX_CLUSTER_V == 40
+    assert _cu_int("kMaxCluster") == tk.MAX_CLUSTER == 8
+    for V in range(tk.MAX_V + 1, tk.MAX_CLUSTER_V + 1):
+        C = tk.cluster_ctas(V)
+        assert 2 <= C <= tk.MAX_CLUSTER, V
+        assert tk.row_cluster_smem_bytes(V, C) <= tk.MAX_SMEM, V
+        assert C == 2 or tk.row_cluster_smem_bytes(V, C - 1) > tk.MAX_SMEM
+        assert (C - 1) * tk.cluster_planes(V, C) < V, V
+    V = tk.MAX_CLUSTER_V + 1
+    assert tk.row_cluster_smem_bytes(V, tk.MAX_CLUSTER) > tk.MAX_SMEM
+    assert tk.cluster_ctas(V) == 0
+    assert [tk.cluster_ctas(V) for V in (21, 24, 28, 32, 40)] == \
+        [2, 2, 3, 4, 8]
+    # the constant-shape cluster builds split their rows evenly
+    for V in tk.CLUSTER_FAST_V:
+        assert V % tk.cluster_ctas(V) == 0
+
+
+def test_kernel_build_follows_v():
+    """The build each V runs, as the launch functions choose it from the
+    CUDA source's constants; no device memory is asked for up to
+    MAX_CLUSTER_V."""
+    assert (_cu_int("kFastV"), _cu_int("kSmallV")) == (tk.FAST_V, tk.SMALL_V)
+    assert (_cu_int("kClusterV24"), _cu_int("kClusterV32")) == \
+        tk.CLUSTER_FAST_V
+    want = {7: "<0>", 8: "<8>", 16: "<16>", 20: "<0>", 21: "_cl<0>",
+            24: "_cl<24>", 28: "_cl<0>", 32: "_cl<32>", 40: "_cl<0>"}
+    for V, tail in want.items():
+        assert tk.kernel_build("k2", V) == "k2_kernel" + tail
+        assert tk.kernel_build("k3", V) == "k3_loop_kernel" + tail
+        assert tk._scratch(8, V, torch.device("cpu")) == (None, 0)
+    assert tk.kernel_build("k2", 41) == "k2_kernel_gm"
+    assert tk.kernel_build("k3", 44) == "k3_loop_kernel<-1>"
 
 
 def test_check_interval_runs_interval_one():

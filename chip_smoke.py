@@ -3691,7 +3691,7 @@ def unit_counts():
         for e in list(cache.entries.values()):
             for g in e.graphs.values():
                 for k, fn in fns.items():
-                    kern[k] += g.replays * sum(1 for f, _ in g.tally
+                    kern[k] += g.replays * sum(1 for f, *_ in g.tally
                                                if f is fn)
         c = graphs.counts()[name]
         if any(c[i] for i in (0, 2, 3)):

@@ -90,6 +90,11 @@ class BaseMap:
         self.recast_pcl_to_map(R @ R_ext, T + R @ T_ext, pcl, rgb_array)
 
     # -- submap registry -----------------------------------------------------
+    def _trace_scalars(self):
+        """0-d device tensors a traced frame's record keeps
+        (``utils/profiling.frame_end``); none here."""
+        return {}
+
     def initialize_submap_fields(self, max_submap_num: int):
         self.submap_enabled = True
         self.max_submap_num = max_submap_num

@@ -46,6 +46,8 @@ from taichislam_tpu_torch.models.dense_tsdf import (DenseTSDF, bin_bucket_for,
                                                     host_export)
 from taichislam_tpu_torch.ops import esdf as esdf_ops
 from taichislam_tpu_torch.ops import sequence as seq_ops
+from taichislam_tpu_torch.utils import profiling
+from taichislam_tpu_torch.utils.profiling import host_read
 
 
 def grow_cap(cap: int, overflow: int, limit: int) -> int:
@@ -109,6 +111,7 @@ class DenseESDF(DenseTSDF):
         self.esdf_fixed = torch.zeros(shape, dtype=torch.int8, device=dev)
         self.esdf_observed = torch.zeros(shape, dtype=torch.bool, device=dev)
         self.last_esdf_sweeps = 0
+        self._esdf_sweeps = None    # the last update's sweeps, on the device
         self.last_esdf_dirty = -1   # -1: gating not engaged yet
         self.num_export_ESDF_particles = 0
         self.export_ESDF = np.zeros((0,), np.float32)
@@ -117,6 +120,16 @@ class DenseESDF(DenseTSDF):
     def _gated(self):
         return (self.enable_esdf and self.esdf_incremental and
                 self.cfg.esdf_seed_eps_voxels >= 0)
+
+    def _trace_scalars(self):
+        """DenseTSDF's, the last update's sweeps and the pending blocks
+        (device tensors)."""
+        out = super()._trace_scalars()
+        if self._esdf_sweeps is not None:
+            out["esdf_sweeps"] = self._esdf_sweeps
+        if self._esdf_pending is not None:
+            out["esdf_pending"] = self._esdf_pending.sum()
+        return out
 
     def _pending_or_zeros(self):
         """The pending bitmap, created empty on first use (the sequences
@@ -171,7 +184,8 @@ class DenseESDF(DenseTSDF):
         """Act on the interval's accumulated maxima (one host read): grow
         the bin, touched and ESDF-cap buckets, and re-queue the interval's
         touched blocks after an ESDF overflow."""
-        bins_total, dropped, _live, esdf_ov = self._frame_pack.tolist()
+        bins_total, dropped, _live, esdf_ov = host_read(
+            "esdf.frame_verdict", self._frame_pack).tolist()
         union = self._frame_union
         self._frame_pack = None
         self._frame_union = None
@@ -322,13 +336,17 @@ class DenseESDF(DenseTSDF):
 
     def _esdf_host_refresh(self):
         """Refresh the host's mode and capacity info (one host read)."""
-        info = self._window_info_dev().cpu().numpy()
+        info = host_read("esdf.window_info", self._window_info_dev()).numpy()
         self._esdf_dims_cached = self._dense_window_dims(info)
         self._esdf_nblocks_cached = int(info[7]) + 1
         self._esdf_host_ready = True
 
     # -- the update -----------------------------------------------------------
     def update_esdf(self):
+        with profiling.span("node.esdf"):
+            self._update_esdf()
+
+    def _update_esdf(self):
         sid = self.active_submap_id
         interactive = self.esdf_check_interval <= 1
         # updated-voxel gating: of the frame's touched blocks only those
@@ -348,9 +366,11 @@ class DenseESDF(DenseTSDF):
                 if self._esdf_pending is not None:
                     dirty = dirty | self._esdf_pending
                 if interactive:
-                    self.last_esdf_dirty = int(dirty.sum())
+                    self.last_esdf_dirty = int(host_read("esdf.dirty_count",
+                                                         dirty.sum()))
                     if self.last_esdf_dirty == 0:
                         self.last_esdf_sweeps = 0
+                        self._esdf_sweeps = None
                         return
         if dirty is None and self.esdf_incremental:
             touched = self.last_stats.get("touched_blocks")
@@ -412,6 +432,7 @@ class DenseESDF(DenseTSDF):
             self.esdf_observed.copy_(observed)
         # written in place: the deferred sequences' graphs hold the tensor
         self._pending_or_zeros().copy_(changed)
+        self._esdf_sweeps = sweeps
         i32 = torch.int32
         pack = torch.cat([torch.stack([
             sweeps.to(i32), overflow.to(i32),
@@ -446,7 +467,8 @@ class DenseESDF(DenseTSDF):
         overflow: grow the window (or give it up for block mode), refresh
         the dense window, or grow the block cap; re-queue the dirty union,
         and in the interactive mode redo when the capacity grew."""
-        sweeps, overflow, ndirty, sx, sy, sz = self._esdf_pack.tolist()
+        sweeps, overflow, ndirty, sx, sy, sz = host_read(
+            "esdf.verdict", self._esdf_pack).tolist()
         self._esdf_pack = None
         self.last_esdf_sweeps = sweeps
         if ndirty >= 0:
@@ -479,7 +501,7 @@ class DenseESDF(DenseTSDF):
                 self._esdf_pending.logical_or_(self._esdf_dirty_union)
             if self.esdf_check_interval <= 1 and grew:
                 self._esdf_dirty_union = None
-                self.update_esdf()
+                self._update_esdf()
                 return
         self._esdf_dirty_union = None
 
@@ -490,9 +512,10 @@ class DenseESDF(DenseTSDF):
             self.cfg, self.max_disp_particles, self._export_block_bucket(),
             self.state, self.esdf, self.esdf_observed, *self._bases(),
             self.active_submap_id, z, dz)
-        n = int(n)
+        n = int(host_read("export.esdf_slice_count", n))
         x, y, zc, esdf, color = host_export(
-            (x, y, zc, esdf, color), n, (-100000.0,) * 3 + (0.0, 0.5))
+            (x, y, zc, esdf, color), n, (-100000.0,) * 3 + (0.0, 0.5),
+            "export.esdf_slice_rows")
         self.export_ESDF_xyz = np.stack([x, y, zc], axis=1)
         self.export_ESDF = esdf
         self.export_color = color
@@ -508,6 +531,6 @@ class DenseESDF(DenseTSDF):
         from taichislam_tpu_torch.ops.exports import voxel_ijk_all
         ijk = voxel_ijk_all(self.cfg.grid, self.state).reshape(-1, 3)
         mask = self.esdf_observed.reshape(-1)
-        ijk = ijk[mask].cpu().numpy()
-        esdf = self.esdf.reshape(-1)[mask].cpu().numpy()
+        ijk = host_read("esdf.dict", ijk[mask]).numpy()
+        esdf = host_read("esdf.dict", self.esdf.reshape(-1)[mask]).numpy()
         return {tuple(i): e for i, e in zip(ijk, esdf)}

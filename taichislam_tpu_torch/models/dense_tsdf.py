@@ -22,7 +22,6 @@ place), so the sequences' captured graphs stay valid.
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -34,6 +33,8 @@ from taichislam_tpu_torch.ops import exports as exports_ops
 from taichislam_tpu_torch.ops import fusion as fusion_ops
 from taichislam_tpu_torch.ops import sequence as seq_ops
 from taichislam_tpu_torch.ops import tsdf as tsdf_ops
+from taichislam_tpu_torch.utils import profiling
+from taichislam_tpu_torch.utils.profiling import host_read
 
 
 def bin_bucket_for(n: int, headroom_num=21, headroom_den=20,
@@ -49,15 +50,16 @@ def bin_bucket_for(n: int, headroom_num=21, headroom_den=20,
         b *= 2
 
 
-def host_export(arrays, kept, fills):
+def host_export(arrays, kept, fills, site):
     """Host copies of capacity-padded export arrays: the first ``kept``
-    rows come from the device, the rest is the padding ``fills`` the
-    device arrays hold (one small copy instead of the whole capacity)."""
+    rows come from the device (host reads counted under ``site``), the rest
+    is the padding ``fills`` the device arrays hold (one small copy instead
+    of the whole capacity)."""
     out = []
     for a, fill in zip(arrays, fills):
         h = np.empty(tuple(a.shape), np.float32)
         h[kept:] = fill
-        h[:kept] = a[:kept].cpu().numpy()
+        h[:kept] = host_read(site, a[:kept]).numpy()
         out.append(h)
     return out
 
@@ -172,9 +174,15 @@ class DenseTSDF(BaseMap):
         self._cap_frame += 1
         if self._cap_frame % self.capacity_check_interval:
             return
-        pack = torch.stack([stats["num_bins"], stats["bins_dropped"]]).cpu()
+        pack = host_read("tsdf.bin_load", torch.stack(
+            [stats["num_bins"], stats["bins_dropped"]]))
         n = int(pack[0]) + int(pack[1])
         self._bin_bucket = min(bin_bucket_for(n), self.cfg.max_bins)
+
+    def _trace_scalars(self):
+        """The last frame's bin count and dropped bins (device tensors)."""
+        return {k: self.last_stats[k] for k in ("num_bins", "bins_dropped")
+                if k in self.last_stats}
 
     def _after_recast(self, stats):
         self.last_stats = stats
@@ -220,7 +228,8 @@ class DenseTSDF(BaseMap):
         """Block cap of the exports: the allocated block count, bucketed to
         a power of two."""
         return min(exports_ops.pow2_capacity(
-            int(self.state.num_blocks) + 1, lo=64), self.cfg.max_blocks)
+            int(host_read("tsdf.block_count", self.state.num_blocks)) + 1,
+            lo=64), self.cfg.max_blocks)
 
     def _bases(self):
         return (self._tensor(self.submaps_base_R_np, np.float32),
@@ -230,9 +239,10 @@ class DenseTSDF(BaseMap):
         x, y, z, color, tsdf, n = exports_ops.tsdf_surface_export(
             self.cfg, capacity, self._export_block_bucket(), self.state,
             *self._bases(), self.active_submap_id)
-        n = int(n)
+        n = int(host_read("export.surface_count", n))
         x, y, z, color, tsdf = host_export(
-            (x, y, z, color, tsdf), n, (-100000.0,) * 3 + (0.5, 0.0))
+            (x, y, z, color, tsdf), n, (-100000.0,) * 3 + (0.5, 0.0),
+            "export.surface_rows")
         return np.stack([x, y, z], axis=1), color, tsdf, n
 
     def cvt_occupy_to_voxels(self):
@@ -259,9 +269,10 @@ class DenseTSDF(BaseMap):
         x, y, zc, tsdf, color, n = exports_ops.tsdf_slice_export(
             self.cfg, self.max_disp_particles, self._export_block_bucket(),
             self.state, *self._bases(), self.active_submap_id, z, dz)
-        n = int(n)
+        n = int(host_read("export.tsdf_slice_count", n))
         x, y, zc, tsdf, color = host_export(
-            (x, y, zc, tsdf, color), n, (-100000.0,) * 3 + (0.0, 0.5))
+            (x, y, zc, tsdf, color), n, (-100000.0,) * 3 + (0.0, 0.5),
+            "export.tsdf_slice_rows")
         self.export_TSDF_xyz = np.stack([x, y, zc], axis=1)
         self.export_TSDF = tsdf
         self.export_color = color
@@ -366,7 +377,8 @@ class DenseTSDF(BaseMap):
         ``self._verdict_extra``."""
         keys = ["max_bins_total", "max_dropped"] + [
             k for k in ("max_esdf_overflow",) if k in stats]
-        pack = torch.stack([stats[k] for k in keys]).cpu().tolist()
+        pack = host_read("tsdf.sequence_verdict",
+                         torch.stack([stats[k] for k in keys])).tolist()
         bins_total, dropped = pack[:2]
         self._verdict_extra = pack[2:]
         redo = False
@@ -404,19 +416,20 @@ class DenseTSDF(BaseMap):
 
     # -- serialization --------------------------------------------------------
     def count_active(self):
-        return int(exports_ops.count_active(self.cfg, self.state,
-                                            self.active_submap_id))
+        return int(host_read("tsdf.count_active", exports_ops.count_active(
+            self.cfg, self.state, self.active_submap_id)))
 
     def to_numpy(self):
         cap = exports_ops.pow2_capacity(max(self.count_active(), 1))
         idx, tsdf, w, occ, col, kept, _ = exports_ops.sparse_gather(
             self.cfg, cap, self._export_block_bucket(), self.state,
             self.active_submap_id)
-        k = int(kept)
-        col_np = col[:k].cpu().numpy() if self.enable_texture else \
-            np.array([])
-        return (idx[:k].cpu().numpy(), tsdf[:k].cpu().numpy(),
-                w[:k].cpu().numpy(), occ[:k].cpu().numpy(), col_np)
+        k = int(host_read("tsdf.to_numpy", kept))
+
+        def rows(t):
+            return host_read("tsdf.to_numpy", t[:k]).numpy()
+        col_np = rows(col) if self.enable_texture else np.array([])
+        return rows(idx), rows(tsdf), rows(w), rows(occ), col_np
 
     def _submap_dict(self, indices, tsdf, w_tsdf, occupy, color):
         return {
@@ -434,16 +447,17 @@ class DenseTSDF(BaseMap):
     def export_submap(self):
         """The active submap's observed voxels as the submap wire dict
         (int16 indices, f16 TSDF / W_TSDF / color, int8 occupy)."""
-        s = time.time()
-        cap = exports_ops.pow2_capacity(max(self.count_active(), 1))
-        buf = exports_ops.sparse_gather_packed(
-            self.cfg, cap, self._export_block_bucket(), self.state,
-            self.active_submap_id)
-        indices, tsdf, w_tsdf, occupy, color, _, _ = \
-            exports_ops.unpack_sparse_delivery(buf, cap, self.enable_texture)
-        obj = self._submap_dict(indices, tsdf, w_tsdf, occupy, color)
+        with profiling.span("submap.export") as sp:
+            cap = exports_ops.pow2_capacity(max(self.count_active(), 1))
+            buf = exports_ops.sparse_gather_packed(
+                self.cfg, cap, self._export_block_bucket(), self.state,
+                self.active_submap_id)
+            indices, tsdf, w_tsdf, occupy, color, _, _ = \
+                exports_ops.unpack_sparse_delivery(buf, cap,
+                                                   self.enable_texture)
+            obj = self._submap_dict(indices, tsdf, w_tsdf, occupy, color)
         print(f"Export submap {self.active_submap_id} to numpy, voxels "
-              f"{len(tsdf)/1024:.1f}k, time: {1000*(time.time()-s):.1f}ms")
+              f"{len(tsdf)/1024:.1f}k, time: {sp.ms:.1f}ms")
         return obj
 
     def export_submap_async(self, lane_bucket, block_bucket, submap_id=None,
@@ -538,9 +552,10 @@ class DenseTSDF(BaseMap):
                                            max_touched_blocks=touched_cap)
             red = fusion_ops.fuse_reduce(submaps.cfg, glob_cfg, bcap,
                                          submaps.state, *bases, only_submap)
-            tiles_over, src_over = (int(x) for x in torch.stack(
-                [red.stats["fuse_tiles_dropped"],
-                 red.stats["fuse_dropped"]]).cpu())
+            tiles_over, src_over = (int(x) for x in host_read(
+                "tsdf.fuse_verdict", torch.stack(
+                    [red.stats["fuse_tiles_dropped"],
+                     red.stats["fuse_dropped"]])))
             if tiles_over > 0 and touched_cap < self.cfg.max_blocks:
                 # target computed once: recomputing it per doubling never
                 # terminates ((cap + over) * 1.1 > cap for all cap)
@@ -571,7 +586,8 @@ class DenseTSDF(BaseMap):
     def _collection_bcap(self, submaps: "DenseTSDF") -> int:
         """Source block cap covering every allocated block of ``submaps``:
         its block count rounded up to a power of two, at least 64."""
-        need = int(submaps.state.num_blocks) + 1
+        need = int(host_read("tsdf.collection_blocks",
+                             submaps.state.num_blocks)) + 1
         bcap = 64
         while bcap < need:
             bcap *= 2
@@ -580,9 +596,9 @@ class DenseTSDF(BaseMap):
     def fuse_submaps(self, submaps: "DenseTSDF"):
         """Reset, then fuse every submap of ``submaps`` into this (global)
         map through THIS map's pose registry (the one PGO updates)."""
-        t = time.time()
-        self._fuse(submaps, self._collection_bcap(submaps), None, True)
-        print(f"[DenseTSDF] Fuse submaps {(time.time()-t)*1000:.1f}ms, "
+        with profiling.span("submap.refuse") as sp:
+            self._fuse(submaps, self._collection_bcap(submaps), None, True)
+        print(f"[DenseTSDF] Fuse submaps {sp.ms:.1f}ms, "
               f"active local: {submaps.active_submap_id} "
               f"remote: {submaps.remote_submap_num}")
 
@@ -594,12 +610,12 @@ class DenseTSDF(BaseMap):
         takes :meth:`fuse_submaps`). ``sub_bcap`` bounds the submap's own
         blocks (default: the whole collection's). The capacity verdict is
         settled before this returns, also with ``defer_verdict=True``."""
-        t = time.time()
-        bcap = min(int(sub_bcap), submaps.cfg.max_blocks) \
-            if sub_bcap is not None else self._collection_bcap(submaps)
-        self._fuse(submaps, bcap, int(submap_id), False)
+        with profiling.span("submap.refuse") as sp:
+            bcap = min(int(sub_bcap), submaps.cfg.max_blocks) \
+                if sub_bcap is not None else self._collection_bcap(submaps)
+            self._fuse(submaps, bcap, int(submap_id), False)
         print(f"[DenseTSDF] Fuse submap {submap_id} incrementally "
-              f"{(time.time()-t)*1000:.1f}ms")
+              f"{sp.ms:.1f}ms")
 
     def resolve_deferred_fuse(self):
         """Nothing to settle: every fuse settles its verdict at once."""

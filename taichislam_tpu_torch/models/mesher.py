@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from taichislam_tpu_torch.ops import marching_cubes as mc_ops
+from taichislam_tpu_torch.utils.profiling import host_read
 
 
 class MarchingCubeMesher:
@@ -79,10 +80,10 @@ class MarchingCubeMesher:
                                   block_mask=block_mask)
         tail = [] if block_mask is None else [block_mask.to(torch.int32)]
         # one host read: the counters, the per-block spans (and the mask)
-        pack = torch.cat([torch.stack([
+        pack = host_read("mesh.counts", torch.cat([torch.stack([
             out["num_triangles"], out["total_triangles"],
             out["surface_blocks_dropped"], out["num_surface_blocks"]]),
-            out["block_slots"], out["block_tri_counts"]] + tail).cpu().numpy()
+            out["block_slots"], out["block_tri_counts"]] + tail)).numpy()
         return out, pack
 
     @staticmethod
@@ -100,12 +101,13 @@ class MarchingCubeMesher:
                                             self.enable_texture)
             return mc_ops.unpack_mesh_delivery(buf, rows,
                                                self.enable_texture)
-        return tuple(out[k][:rows].cpu().numpy()
+        return tuple(host_read("mesh.rows", out[k][:rows]).numpy()
                      for k in ("vertices", "normals", "colors"))
 
     # -- full extraction (+ the spans that seed the incremental path) -----
     def _generate_mesh_full(self, step=1):
-        nblocks = int(self.mapping.state.num_blocks) + 1
+        nblocks = int(host_read("mesh.block_count",
+                                self.mapping.state.num_blocks)) + 1
         cap = 64
         while cap < nblocks:
             cap *= 2

@@ -7,8 +7,6 @@ parameter of ``cvt_occupy_to_voxels(level)``.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -18,6 +16,8 @@ from taichislam_tpu_torch.models.base_map import BaseMap, resolve_device
 from taichislam_tpu_torch.models.dense_tsdf import host_export
 from taichislam_tpu_torch.ops import exports as exports_ops
 from taichislam_tpu_torch.ops import occupancy as occ_ops
+from taichislam_tpu_torch.utils import profiling
+from taichislam_tpu_torch.utils.profiling import host_read
 
 
 class Octomap(BaseMap):
@@ -96,15 +96,17 @@ class Octomap(BaseMap):
     # -- exports ------------------------------------------------------------
     def _occupy_export(self, capacity, level):
         bcap = min(exports_ops.pow2_capacity(
-            int(self.state.num_blocks) + 1, lo=64), self.cfg.max_blocks)
+            int(host_read("octo.block_count", self.state.num_blocks)) + 1,
+            lo=64), self.cfg.max_blocks)
         x, y, z, color, n = occ_ops.occupy_export(
             self.cfg, capacity, int(level), bcap, self.state,
             self._tensor(self.submaps_base_R_np, np.float32),
             self._tensor(self.submaps_base_T_np, np.float32),
             self.active_submap_id)
-        n = int(n)
+        n = int(host_read("export.occupy_count", n))
         x, y, z, color = host_export((x, y, z, color), n,
-                                     (-100000.0,) * 3 + (0.5,))
+                                     (-100000.0,) * 3 + (0.5,),
+                                     "export.occupy_rows")
         return np.stack([x, y, z], axis=1), color, n
 
     def cvt_occupy_to_voxels(self, level=0):
@@ -144,9 +146,9 @@ class Octomap(BaseMap):
         """Reset, then fuse every submap of ``submaps`` through THIS map's
         pose registry (the one PGO updates)."""
         self.reset()
-        t = time.time()
-        self._fuse(submaps, None)
-        print(f"[OctoMap] Fuse submaps {(time.time()-t)*1000:.1f}ms, "
+        with profiling.span("submap.refuse") as sp:
+            self._fuse(submaps, None)
+        print(f"[OctoMap] Fuse submaps {sp.ms:.1f}ms, "
               f"active local: {submaps.active_submap_id} "
               f"remote: {submaps.remote_submap_num}")
 
@@ -156,10 +158,10 @@ class Octomap(BaseMap):
         so this equals reset + refuse-all until PGO moves base poses).
         ``sub_bcap`` and ``defer_verdict`` are accepted for DenseTSDF's
         signature; the count splat has no capacity verdict."""
-        t = time.time()
-        self._fuse(submaps, submap_id)
+        with profiling.span("submap.refuse") as sp:
+            self._fuse(submaps, submap_id)
         print(f"[OctoMap] Fuse submap {submap_id} incrementally "
-              f"{(time.time()-t)*1000:.1f}ms")
+              f"{sp.ms:.1f}ms")
 
     def resolve_deferred_fuse(self):
         """Nothing to settle: octomap fuses have no capacity verdict."""

@@ -26,7 +26,6 @@ from __future__ import annotations
 import io
 import queue
 import threading
-import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 
@@ -37,6 +36,8 @@ from taichislam_tpu_torch.models.base_map import resolve_device
 from taichislam_tpu_torch.models.dense_tsdf import DenseTSDF, bin_bucket_for
 from taichislam_tpu_torch.models.octomap import Octomap
 from taichislam_tpu_torch.ops import exports as exports_ops
+from taichislam_tpu_torch.utils import profiling
+from taichislam_tpu_torch.utils.profiling import host_read
 
 # the reference's default options of both maps
 _MAP_DEFAULTS = {"voxel_scale": 0.05, "texture_enabled": False,
@@ -178,6 +179,10 @@ class SubmapMapping:
         self.submap_collection.set_color_camera_intrinsic(K)
 
     # -- export switching ---------------------------------------------------
+    def _trace_scalars(self):
+        """The collection's device scalars for a traced frame's record."""
+        return self.submap_collection._trace_scalars()
+
     def set_exporting_global(self):
         self.exporting_global = True
         self.set_export_submap(self.global_map)
@@ -248,7 +253,10 @@ class SubmapMapping:
 
     def _finalize_active_submap(self):
         """Ship the finished submap to peers, advance the collection to a
-        fresh slot, and bring the global map up to date."""
+        fresh slot, and bring the global map up to date. Under the span
+        ``submap.finalize`` (``create_new_submap``): ``submap.export`` (the
+        gather), ``submap.send`` (encode and publish) and ``submap.refuse``
+        (the global map's fuse)."""
         finished_sid = self.submap_collection.get_active_submap_id()
         if self.async_finalize and not self._fusion_dirty and \
                 not self._active_in_global:
@@ -294,23 +302,25 @@ class SubmapMapping:
                 self.post_local_to_global_callback(gm)
             return
         if self._wire_caps is None:
-            pack = torch.stack([
+            pack = host_read("submap.wire_caps", torch.stack([
                 col.state.num_blocks.to(torch.int32) + 1,
                 exports_ops.count_active(col.cfg, col.state,
-                                         col.active_submap_id)]).cpu()
+                                         col.active_submap_id)]))
             self._wire_caps = self._predict_caps(int(pack[0]), int(pack[1]))
         lane_cap, blk_cap = self._wire_caps
-        buf = col.export_submap_async(lane_cap, blk_cap)
+        with profiling.span("submap.export"):
+            buf = col.export_submap_async(lane_cap, blk_cap)
         # the worker reads the buffer after this event: its reads are
         # ordered after the gather whatever stream the worker uses
         done = None
         if buf.device.type == "cuda":
             done = torch.cuda.Event()
             done.record()
-        self._ensure_wire_workers()
-        self._wire_q.put(self._wire_pool.submit(
-            self._wire_prepare, buf, done, lane_cap, blk_cap, finished_sid,
-            self.active_submap_frame_id, pose))
+        with profiling.span("submap.send"):
+            self._ensure_wire_workers()
+            self._wire_q.put(self._wire_pool.submit(
+                self._wire_prepare, buf, done, lane_cap, blk_cap,
+                finished_sid, self.active_submap_frame_id, pose))
         col.switch_to_next_submap()
         col.clear_last_TSDF_exporting = True
         gm.fuse_submaps_incremental(col, finished_sid, sub_bcap=blk_cap,
@@ -365,7 +375,7 @@ class SubmapMapping:
         while True:
             if done is not None:
                 done.synchronize()
-            buf_np = buf.cpu().numpy()
+            buf_np = host_read("submap.wire_buffer", buf).numpy()
             head = buf_np[:16].view(np.int32)
             total_b, total_v = int(head[1]), int(head[3])
             if total_b <= blk_cap and total_v <= lane_cap:
@@ -437,18 +447,20 @@ class SubmapMapping:
 
     def create_new_submap(self, frame_id, R, T):
         if not self.first_init:
-            self._finalize_active_submap()
-        self.first_init = False
-        sid = self.submap_collection.get_active_submap_id()
-        for m in (self.global_map, self.submap_collection):
-            m.set_base_pose_submap(sid, R, T)
-        self.pgo_poses[frame_id] = (R, T)
-        self.submaps[frame_id] = sid
-        self.active_submap_frame_id = frame_id
-        print(f"[SubmapMapping] Created new submap on frame {frame_id}, "
-              f"now have {sid+1} submaps")
-        if self.autosave_path is not None and sid % 2 == 0:
-            self.saveMap(self.autosave_path)
+            with profiling.span("submap.finalize"):
+                self._finalize_active_submap()
+        with profiling.span("submap.create"):
+            self.first_init = False
+            sid = self.submap_collection.get_active_submap_id()
+            for m in (self.global_map, self.submap_collection):
+                m.set_base_pose_submap(sid, R, T)
+            self.pgo_poses[frame_id] = (R, T)
+            self.submaps[frame_id] = sid
+            self.active_submap_frame_id = frame_id
+            print(f"[SubmapMapping] Created new submap on frame {frame_id}, "
+                  f"now have {sid+1} submaps")
+            if self.autosave_path is not None and sid % 2 == 0:
+                self.saveMap(self.autosave_path)
         return self.submap_collection
 
     def local_to_global(self):
@@ -561,12 +573,12 @@ class SubmapMapping:
     def send_submap(self, submap):
         submap["frame_id"] = self.active_submap_frame_id
         submap["pose"] = self.pgo_poses[self.active_submap_frame_id]
-        s = time.time()
-        raw, compressed = self._encode(submap)
-        self.map_send_handle(compressed)
+        with profiling.span("submap.send") as sp:
+            raw, compressed = self._encode(submap)
+            self.map_send_handle(compressed)
         print(f"[SubmapMapping] Send submap with {len(raw)/1024.0:.1f} kB, "
               f"compressed {len(compressed)/1024:.1f}kB compress cost "
-              f"{(time.time()-s)*1000:.1f}ms")
+              f"{sp.ms:.1f}ms")
 
     def send_traj(self, traj):
         raw = _encode_pickle(traj) if self.wire_format == "pickle" else \

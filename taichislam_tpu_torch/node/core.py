@@ -28,7 +28,6 @@ It differs from the JAX class in two ways:
 
 from __future__ import annotations
 
-import time
 from math import nan
 
 import numpy as np
@@ -39,6 +38,7 @@ from taichislam_tpu_torch.models.dense_tsdf import DenseTSDF
 from taichislam_tpu_torch.models.mesher import MarchingCubeMesher
 from taichislam_tpu_torch.models.octomap import Octomap
 from taichislam_tpu_torch.models.submap_mapping import SubmapMapping
+from taichislam_tpu_torch.utils import profiling
 from taichislam_tpu_torch.utils.comm import (CHANNEL_SUBMAP, CHANNEL_TRAJ,
                                              SLAMComm)
 from taichislam_tpu_torch.utils.ros_pcl_transfer import (
@@ -214,7 +214,8 @@ class TaichiSLAMNodeCore:
 
     def handle_comm(self):
         if self.comm is not None:
-            self.comm.handle()
+            with profiling.span("node.comm"):
+                self.comm.handle()
 
     def on_remote_submap(self, buf):
         self.mapping.input_remote_submap(buf)
@@ -264,89 +265,99 @@ class TaichiSLAMNodeCore:
     # -- frame staging: callbacks stage the LATEST frame; the main loop
     # -- consumes it (latest-wins queue) --------------------------------------
     def stage_depth(self, frame, depth_msg, texture=np.array([], dtype=int)):
-        self.depth_msg = depth_msg
-        self.cur_frame = frame
-        self.texture = texture
-        self.updated = True
+        with profiling.span("node.stage"):
+            self.depth_msg = depth_msg
+            self.cur_frame = frame
+            self.texture = texture
+            self.updated = True
 
     def stage_pcl(self, frame, cloud_msg):
-        self.cloud_msg = cloud_msg
-        self.cur_frame = frame
-        self.updated = True
-        self.updated_pcl = True
+        with profiling.span("node.stage"):
+            self.cloud_msg = cloud_msg
+            self.cur_frame = frame
+            self.updated = True
+            self.updated_pcl = True
 
     def decode_image(self, image, compressed: bool):
-        if compressed:
-            import cv2
+        with profiling.span("node.stage"):
+            if compressed:
+                import cv2
+                np_arr = np.frombuffer(image.data, np.uint8)
+                rgb = cv2.imdecode(np_arr, cv2.IMREAD_COLOR)
+                return cv2.cvtColor(rgb, cv2.COLOR_BGR2RGB)
             np_arr = np.frombuffer(image.data, np.uint8)
-            rgb = cv2.imdecode(np_arr, cv2.IMREAD_COLOR)
-            return cv2.cvtColor(rgb, cv2.COLOR_BGR2RGB)
-        np_arr = np.frombuffer(image.data, np.uint8)
-        return np_arr.reshape((image.height, image.width, -1))
+            return np_arr.reshape((image.height, image.width, -1))
 
     # -- recast / output / render loop ----------------------------------------
+    # the times below are the spans' host ms (``utils/profiling``): nan
+    # while tracing is off (``TAICHISLAM_TRACE=1`` turns it on)
     def recast(self):
         frame = self.cur_frame
         mapping = self.mapping
-        start_time = time.time()
-        if self.updated_pcl:
-            self.updated_pcl = False
-            xyz_array, rgb_array = pointcloud2_to_xyz_rgb_array(
-                self.cloud_msg)
-            t_pcl2npy = (time.time() - start_time) * 1000
-            pose = pose_msg_to_numpy(frame.odom.pose.pose)
-            ext = np.eye(3), np.zeros(3)
-            mapping.recast_pcl_to_map_by_frame(frame.frame_id,
-                                               frame.is_keyframe, pose, ext,
-                                               xyz_array, rgb_array)
-        else:
-            w, h = self.depth_msg.width, self.depth_msg.height
-            depthmap = np.frombuffer(self.depth_msg.data,
-                                     dtype=np.uint16).reshape((h, w))
-            t_pcl2npy = (time.time() - start_time) * 1000
-            pose = pose_msg_to_numpy(frame.odom.pose.pose)
-            ext = pose_msg_to_numpy(frame.extrinsics[0])
-            mapping.recast_depth_to_map_by_frame(frame.frame_id,
-                                                 frame.is_keyframe, pose, ext,
-                                                 depthmap, self.texture)
-        return pose, t_pcl2npy, (time.time() - start_time) * 1000
+        with profiling.span("node.recast") as t_recast:
+            if self.updated_pcl:
+                self.updated_pcl = False
+                with profiling.span("node.decode") as t_pcl2npy:
+                    xyz_array, rgb_array = pointcloud2_to_xyz_rgb_array(
+                        self.cloud_msg)
+                pose = pose_msg_to_numpy(frame.odom.pose.pose)
+                ext = np.eye(3), np.zeros(3)
+                mapping.recast_pcl_to_map_by_frame(frame.frame_id,
+                                                   frame.is_keyframe, pose,
+                                                   ext, xyz_array, rgb_array)
+            else:
+                with profiling.span("node.decode") as t_pcl2npy:
+                    w, h = self.depth_msg.width, self.depth_msg.height
+                    depthmap = np.frombuffer(self.depth_msg.data,
+                                             dtype=np.uint16).reshape((h, w))
+                pose = pose_msg_to_numpy(frame.odom.pose.pose)
+                ext = pose_msg_to_numpy(frame.extrinsics[0])
+                mapping.recast_depth_to_map_by_frame(frame.frame_id,
+                                                     frame.is_keyframe, pose,
+                                                     ext, depthmap,
+                                                     self.texture)
+        return pose, t_pcl2npy.ms, t_recast.ms
 
     def output(self, R, T):
         mapping = self.mapping
         t_mesh = t_export = t_pubros = nan
         if self.mapping_type == "octo":
-            mapping.cvt_occupy_to_voxels(self.disp_level)
+            with profiling.span("node.export_occupy"):
+                mapping.cvt_occupy_to_voxels(self.disp_level)
             n = mapping.num_export_particles
             if self.output_map:
-                self.publish_pointcloud(mapping.export_x[:n],
-                                        mapping.export_color[:n],
-                                        mapping.enable_texture)
+                with profiling.span("node.publish"):
+                    self.publish_pointcloud(mapping.export_x[:n],
+                                            mapping.export_color[:n],
+                                            mapping.enable_texture)
         else:
             if self.enable_rendering and self.render.enable_mesher:
-                start_time = time.time()
-                self.mesher.generate_mesh(1)
-                t_mesh = (time.time() - start_time) * 1000
+                with profiling.span("node.mesh") as sp:
+                    self.mesher.generate_mesh(1)
+                t_mesh = sp.ms
                 self.render.set_mesh(self.mesher.mesh_vertices,
                                      self.mesher.mesh_colors,
                                      self.mesher.mesh_normals,
                                      mesh_num=self.mesher.num_facelets)
             elif self.output_map:
-                start_time = time.time()
-                mapping.cvt_TSDF_surface_to_voxels()
-                t_export = (time.time() - start_time) * 1000
+                with profiling.span("node.export_surface") as sp:
+                    mapping.cvt_TSDF_surface_to_voxels()
+                t_export = sp.ms
                 n = mapping.num_TSDF_particles
-                start_time = time.time()
-                self.publish_pointcloud(mapping.export_TSDF_xyz[:n],
-                                        mapping.export_color[:n],
-                                        mapping.enable_texture)
-                t_pubros = (time.time() - start_time) * 1000
+                with profiling.span("node.publish") as sp:
+                    self.publish_pointcloud(mapping.export_TSDF_xyz[:n],
+                                            mapping.export_color[:n],
+                                            mapping.enable_texture)
+                t_pubros = sp.ms
             if self.mapping_type == "esdf" and self.output_map and \
                     self.esdf_publish_slice_z is not None:
-                mapping.cvt_ESDF_to_voxels_slice(
-                    float(self.esdf_publish_slice_z))
+                with profiling.span("node.export_slice"):
+                    mapping.cvt_ESDF_to_voxels_slice(
+                        float(self.esdf_publish_slice_z))
                 n = mapping.num_export_ESDF_particles
-                self.publish_pointcloud(mapping.export_ESDF_xyz[:n],
-                                        mapping.export_color[:n], True)
+                with profiling.span("node.publish"):
+                    self.publish_pointcloud(mapping.export_ESDF_xyz[:n],
+                                            mapping.export_color[:n], True)
         if self.enable_rendering and self.render.lock_pos_drone:
             self.render.camera_lookat = T
         return t_mesh, t_export, t_pubros
@@ -355,17 +366,26 @@ class TaichiSLAMNodeCore:
         if not self.updated:
             return
         self.updated = False
-        pose, t_pcl2npy, t_recast = self.recast()
-        if self.enable_rendering:
-            self.render.set_drone_pose(0, pose[0], pose[1])
-        t_mesh, t_export, t_pubros = self.output(pose[0], pose[1])
-        self.count += 1
-        print(f"[TaichiSLAM] Time: pcl2npy {t_pcl2npy:.1f}ms t_recast "
-              f"{t_recast:.1f}ms t_export {t_export:.1f}ms t_mesh "
-              f"{t_mesh:.1f}ms t_pubros {t_pubros:.1f}ms")
+        profiling.frame_begin(self.count)
+        try:
+            pose, t_pcl2npy, t_recast = self.recast()
+            if self.enable_rendering:
+                self.render.set_drone_pose(0, pose[0], pose[1])
+            t_mesh, t_export, t_pubros = self.output(pose[0], pose[1])
+            self.count += 1
+            with profiling.span("node.report"):
+                print(f"[TaichiSLAM] Time: pcl2npy {t_pcl2npy:.1f}ms "
+                      f"t_recast {t_recast:.1f}ms t_export {t_export:.1f}ms "
+                      f"t_mesh {t_mesh:.1f}ms t_pubros {t_pubros:.1f}ms")
+        finally:
+            profiling.frame_end(self.mapping._trace_scalars)
 
     def rendering(self):
-        start_time = time.time()
+        with profiling.span("node.render") as sp:
+            self._rendering()
+        return sp.ms
+
+    def _rendering(self):
         mapping = self.mapping
         if self.enable_rendering:
             if self.mapping_type == "tsdf":
@@ -395,7 +415,6 @@ class TaichiSLAMNodeCore:
                                           mapping.export_color,
                                           mapping.num_export_particles)
             self.render.rendering()
-        return (time.time() - start_time) * 1000
 
     def traj_callback(self, traj):
         if traj.drone_id != self.drone_id:

@@ -43,6 +43,7 @@ from taichislam_tpu_torch.core.device import resolve_device
 from taichislam_tpu_torch.core.geometry import inv, sign
 from taichislam_tpu_torch.core.grid import block_origin_voxel, lookup_slots
 from taichislam_tpu_torch.ops import graphs
+from taichislam_tpu_torch.utils.profiling import host_read
 from taichislam_tpu_torch.ops.kernels.esdf_sweep import (ENC_BIG,
                                                          esdf_sweep,
                                                          esdf_sweep_loop)
@@ -943,7 +944,7 @@ def _dense_loop(max_sweeps: int, d, run_chunk):
     chunk but the first one host read of the device's ``active`` flag, so
     the sweep count equals the while-loop's."""
     for s0 in range(0, max_sweeps, _SWEEP_CHECK):
-        if s0 > 0 and not bool(d["active"]):
+        if s0 > 0 and not bool(host_read("esdf.dense_active", d["active"])):
             break
         run_chunk(min(_SWEEP_CHECK, max_sweeps - s0))
 

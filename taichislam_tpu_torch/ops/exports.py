@@ -34,6 +34,7 @@ from taichislam_tpu_torch.core.grid import (GridState, allocate_blocks,
                                             flat_voxel_index, lookup_slots,
                                             voxel_to_block_c)
 from taichislam_tpu_torch.ops import graphs
+from taichislam_tpu_torch.utils.profiling import host_read
 
 
 @functools.lru_cache(maxsize=8)
@@ -350,7 +351,7 @@ def unpack_bitmap_packed(buf, lane_cap: int, block_cap: int, V: int,
     (indices int16 (n, 3), tsdf f16, w f16, occ int8, color f16 (n, 3) or
     empty, kept_blocks, total_blocks, kept_vox, total_vox)."""
     if isinstance(buf, torch.Tensor):
-        buf = buf.cpu().numpy()
+        buf = host_read("exports.bitmap_buffer", buf).numpy()
     buf = np.asarray(buf)
     V3 = V * V * V
     kept_b, total_b, kept_v, total_v = (int(x)
@@ -388,7 +389,7 @@ def unpack_sparse_delivery(buf, capacity: int, with_color: bool):
     Returns (indices int16 (k, 3), tsdf f16 (k,), w f16 (k,), occ int8 (k,),
     color f16 (k, 3) or empty, kept, total)."""
     if isinstance(buf, torch.Tensor):
-        buf = buf.cpu().numpy()
+        buf = host_read("exports.sparse_buffer", buf).numpy()
     buf = np.asarray(buf)
     kept, total = (int(x) for x in buf[:8].view(np.int32))
     k = min(kept, capacity)

@@ -34,7 +34,8 @@ body the same way. This module holds what they share:
   thread or the topo worker may use CUDA meanwhile); a failed capture or
   replay raises, nothing falls back to the eager body;
 - every replay adds the launches its capture recorded to the kernels'
-  counters (``build.capture_tally`` / ``build.add_counts``);
+  counters (``build.capture_tally`` / ``build.add_counts``); each capture
+  is the span ``unit.capture/<unit>`` of ``utils/profiling``;
 - a replay's outputs live in the device's graph memory pool, which the
   next replay (of any graph) may overwrite: :meth:`UnitCache.call` hands
   the caller clones of them and its own objects (the state it passed) as
@@ -59,6 +60,7 @@ import torch
 
 from taichislam_tpu_torch.core.grid import GridState, clone_state
 from taichislam_tpu_torch.ops.kernels import build
+from taichislam_tpu_torch.utils import profiling
 
 _NP_DTYPE = {torch.int32: np.int32, torch.uint8: np.uint8,
              torch.float32: np.float32, torch.bool: np.bool_,
@@ -376,7 +378,8 @@ class UnitCache:
         no reference to the caller's objects ``own``); ``t0`` (host clock)
         starts the capture's time earlier, at its warm-up."""
         t0 = time.perf_counter() if t0 is None else t0
-        entry.graphs[name] = Captured(fn, own)
+        with profiling.span("unit.capture/" + self.name):
+            entry.graphs[name] = Captured(fn, own)
         self.captures += 1
         self.capture_ms += 1000 * (time.perf_counter() - t0)
         return entry.graphs[name]

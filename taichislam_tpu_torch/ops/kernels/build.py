@@ -7,8 +7,8 @@ package: at the repository root in a checkout (listed in ``.gitignore``),
 in ``<site-packages>/build/kernels/`` in an installed copy, which must be
 writable. The file name carries a hash of the sources and flags, so an
 edited source builds anew. Nothing here runs at import. :func:`count`
-keeps the wrappers' launch counters true under CUDA graph capture and
-replay.
+keeps the wrappers' launch and work counters true under CUDA graph capture
+and replay.
 """
 
 from __future__ import annotations
@@ -22,6 +22,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+from taichislam_tpu_torch.utils import profiling
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -123,32 +125,36 @@ def check(err: int, what: str) -> None:
 _capture = threading.local()
 
 
-def count(fn, site=None) -> None:
+def count(fn, site=None, work=None) -> None:
     """Count one launch of ``fn``'s kernel (``fn.launches`` and, with a
-    ``site``, ``fn.site_launches[site]``). While this thread captures a
-    CUDA graph under :func:`capture_tally` nothing runs yet: the launch
-    goes into the capture's tally instead, and every replay of the graph
-    adds the tally through :func:`add_counts`."""
+    ``site``, ``fn.site_launches[site]``) and its ``work`` ({counter name:
+    amount}, added to ``utils/profiling``'s counters). While this thread
+    captures a CUDA graph under :func:`capture_tally` nothing runs yet: the
+    launch goes into the capture's tally instead, and every replay of the
+    graph adds the tally through :func:`add_counts`."""
     import torch
     tally = getattr(_capture, "tally", None)
     if tally is not None and torch.cuda.is_current_stream_capturing():
-        tally.append((fn, site))
+        tally.append((fn, site, work))
     else:
-        add_counts([(fn, site)])
+        add_counts([(fn, site, work)])
 
 
 def add_counts(tally, times: int = 1) -> None:
-    """Add ``times`` launches of every (fn, site) entry of ``tally``."""
-    for fn, site in tally:
+    """Add ``times`` launches, and their work, of every (fn, site, work)
+    entry of ``tally``."""
+    for fn, site, work in tally:
         fn.launches += times
         if site is not None:
             fn.site_launches[site] = fn.site_launches.get(site, 0) + times
+        for name, n in (work or {}).items():
+            profiling.count(name, n * times)
 
 
 @contextlib.contextmanager
 def capture_tally():
     """Collect the launches :func:`count` sees while this thread captures
-    a graph; yields the tally, a list of (fn, site)."""
+    a graph; yields the tally, a list of (fn, site, work)."""
     tally = []
     _capture.tally = tally
     try:

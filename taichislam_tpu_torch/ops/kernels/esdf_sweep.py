@@ -27,7 +27,9 @@ size, the SM count) depends on shapes only, their outputs and scratch come
 from the allocator (a graph's pool under capture), the one-time kernel
 attributes are set on the first, eager call, and stream capture takes K3's
 cooperative launch as it is, with or without a cluster dimension; the
-launch counters count each replay of a captured graph (``build.count``).
+launch counters count each replay of a captured graph (``build.count``),
+with each launch's rows and field cells (rows x (V + 2)^3) as ``k2/*`` and
+``k3/*`` counters of ``utils/profiling``.
 """
 
 from __future__ import annotations
@@ -324,7 +326,8 @@ def esdf_sweep(esdf_h, enc_h, side_h, slab_act=None, *, V: int, v1: float,
         0 if scratch is None else scratch.data_ptr(), ctas,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "esdf_sweep_launch")
-    build.count(esdf_sweep, kernel_build("k2", V))
+    build.count(esdf_sweep, kernel_build("k2", V),
+                {"k2/launches": 1, "k2/rows": N, "k2/cells": N * W ** 3})
     return out
 
 
@@ -466,7 +469,8 @@ def esdf_sweep_loop(esdf_h, enc_hh, nsl27, upd_rows, *, V: int, v1: float,
         0 if scratch is None else scratch.data_ptr(), ctas,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "esdf_loop_launch")
-    build.count(esdf_sweep_loop, kernel_build("k3", V))
+    build.count(esdf_sweep_loop, kernel_build("k3", V),
+                {"k3/launches": 1, "k3/rows": N, "k3/cells": N * W ** 3})
     return fld, stats
 
 

@@ -14,7 +14,9 @@ version only for CPU tensors; for CUDA tensors it launches the kernel or
 raises. It is capture-safe: its host work depends on shapes only, its
 workspace comes from the allocator (a graph's pool under capture), and its
 launch counters count each replay of a captured graph
-(``build.count``).
+(``build.count``), with each launch's work: lanes, lanes x values, sorted
+key bytes, presorted launches, touched-block capacity and tile values, the
+sizes the caller hands the kernel (``k1/*`` in ``utils/profiling``).
 """
 
 from __future__ import annotations
@@ -218,7 +220,11 @@ def segmented_block_reduce(bkey, intra, vals: Sequence[torch.Tensor],
         lanes_dropped.data_ptr(), ws.data_ptr(), ws_bytes,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "seg_accum_launch")
-    build.count(segmented_block_reduce, site)
+    build.count(segmented_block_reduce, site, {
+        "k1/launches": 1, "k1/lanes": N, "k1/lane_vals": N * n_vals,
+        "k1/key_bytes": N * key_bytes, "k1/presorted": int(presorted),
+        "k1/max_touched": max_touched,
+        "k1/tile_vals": max_touched * n_vals * V3})
     return touched, acc, n_touched, lanes_dropped
 
 

@@ -44,6 +44,7 @@ from taichislam_tpu_torch.ops.esdf import (assemble_halo,
                                            neighbor_slot_cols,
                                            neighbor_slot_table)
 from taichislam_tpu_torch.ops.exports import _intra_offsets
+from taichislam_tpu_torch.utils.profiling import host_read
 
 EPS = 1e-6
 
@@ -417,7 +418,7 @@ def pack_mesh_delivery(vertices, normals, colors, rows: int,
 def unpack_mesh_delivery(buf, rows: int, with_colors: bool):
     """Host-side inverse of :func:`pack_mesh_delivery` (numpy)."""
     if isinstance(buf, torch.Tensor):
-        buf = buf.cpu().numpy()
+        buf = host_read("mesh.buffer", buf).numpy()
     buf = np.asarray(buf)
     v = buf[:rows * 6].view(np.int16).reshape(rows, 3).astype(np.float32)
     v *= 1e-3

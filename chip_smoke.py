@@ -3654,7 +3654,9 @@ NODE_UNITS = (("ops.tsdf", "integrate_depth"), ("ops.tsdf", "integrate_pcl"),
               ("ops.esdf", "esdf_seed_dirty"), ("ops.esdf", "esdf_update"),
               ("ops.esdf", "esdf_update_dense"),
               ("ops.esdf", "esdf_slice_export"),
+              ("ops.esdf", "esdf_slice_export_packed"),
               ("ops.exports", "tsdf_surface_export"),
+              ("ops.exports", "tsdf_surface_export_packed"),
               ("ops.marching_cubes", "dilate_blocks"),
               ("ops.marching_cubes", "extract_mesh"))
 

@@ -42,9 +42,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from taichislam_tpu_torch.models.dense_tsdf import (DenseTSDF, bin_bucket_for,
-                                                    host_export)
+from taichislam_tpu_torch.models.dense_tsdf import DenseTSDF, bin_bucket_for
 from taichislam_tpu_torch.ops import esdf as esdf_ops
+from taichislam_tpu_torch.ops import exports as exports_ops
 from taichislam_tpu_torch.ops import sequence as seq_ops
 from taichislam_tpu_torch.utils import profiling
 from taichislam_tpu_torch.utils.profiling import host_read
@@ -508,18 +508,13 @@ class DenseESDF(DenseTSDF):
     # -- exports --------------------------------------------------------------
     def cvt_ESDF_to_voxels_slice(self, z, dz=0.5):
         self._refresh_esdf_observed()
-        x, y, zc, esdf, color, n = esdf_ops.esdf_slice_export(
+        buf = esdf_ops.esdf_slice_export_packed(
             self.cfg, self.max_disp_particles, self._export_block_bucket(),
             self.state, self.esdf, self.esdf_observed, *self._bases(),
             self.active_submap_id, z, dz)
-        n = int(host_read("export.esdf_slice_count", n))
-        x, y, zc, esdf, color = host_export(
-            (x, y, zc, esdf, color), n, (-100000.0,) * 3 + (0.0, 0.5),
-            "export.esdf_slice_rows")
-        self.export_ESDF_xyz = np.stack([x, y, zc], axis=1)
-        self.export_ESDF = esdf
-        self.export_color = color
-        self.num_export_ESDF_particles = n
+        (self.export_ESDF_xyz, self.export_ESDF, self.export_color,
+         self.num_export_ESDF_particles) = exports_ops.unpack_export(
+            buf, self.max_disp_particles, True, "export.esdf_slice_packed")
 
     def get_voxels_ESDF_slice(self, z):
         self.cvt_ESDF_to_voxels_slice(z)

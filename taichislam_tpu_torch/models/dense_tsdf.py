@@ -50,20 +50,6 @@ def bin_bucket_for(n: int, headroom_num=21, headroom_den=20,
         b *= 2
 
 
-def host_export(arrays, kept, fills, site):
-    """Host copies of capacity-padded export arrays: the first ``kept``
-    rows come from the device (host reads counted under ``site``), the rest
-    is the padding ``fills`` the device arrays hold (one small copy instead
-    of the whole capacity)."""
-    out = []
-    for a, fill in zip(arrays, fills):
-        h = np.empty(tuple(a.shape), np.float32)
-        h[kept:] = fill
-        h[:kept] = host_read(site, a[:kept]).numpy()
-        out.append(h)
-    return out
-
-
 class DenseTSDF(BaseMap):
     def __init__(self, map_scale=[10, 10], voxel_scale=0.05,
                  texture_enabled=False, max_disp_particles=1024 * 1024,
@@ -236,20 +222,18 @@ class DenseTSDF(BaseMap):
                 self._tensor(self.submaps_base_T_np, np.float32))
 
     def _surface_export(self, capacity):
-        x, y, z, color, tsdf, n = exports_ops.tsdf_surface_export(
+        """(xyz, tsdf, color, kept): host views of one packed read."""
+        buf = exports_ops.tsdf_surface_export_packed(
             self.cfg, capacity, self._export_block_bucket(), self.state,
             *self._bases(), self.active_submap_id)
-        n = int(host_read("export.surface_count", n))
-        x, y, z, color, tsdf = host_export(
-            (x, y, z, color, tsdf), n, (-100000.0,) * 3 + (0.5, 0.0),
-            "export.surface_rows")
-        return np.stack([x, y, z], axis=1), color, tsdf, n
+        return exports_ops.unpack_export(buf, capacity, True,
+                                         "export.surface_packed")
 
     def cvt_occupy_to_voxels(self):
         self.cvt_TSDF_surface_to_voxels()
 
     def cvt_TSDF_surface_to_voxels(self):
-        (self.export_TSDF_xyz, self.export_color, self.export_TSDF,
+        (self.export_TSDF_xyz, self.export_TSDF, self.export_color,
          self.num_TSDF_particles) = self._surface_export(
             self.max_disp_particles)
 
@@ -257,7 +241,7 @@ class DenseTSDF(BaseMap):
                                       export_TSDF_xyz, export_color):
         """Append the surface export to host buffers that already hold
         ``num_particles``; returns the new count."""
-        xyz, color, _, kept = self._surface_export(max_disp_particles)
+        xyz, _, color, kept = self._surface_export(max_disp_particles)
         copy = min(kept, max(0, max_disp_particles - num_particles))
         if copy > 0:
             sl = slice(num_particles, num_particles + copy)
@@ -266,17 +250,12 @@ class DenseTSDF(BaseMap):
         return num_particles + copy
 
     def cvt_TSDF_to_voxels_slice(self, z, dz=0.5, clear_last=True):
-        x, y, zc, tsdf, color, n = exports_ops.tsdf_slice_export(
+        buf = exports_ops.tsdf_slice_export_packed(
             self.cfg, self.max_disp_particles, self._export_block_bucket(),
             self.state, *self._bases(), self.active_submap_id, z, dz)
-        n = int(host_read("export.tsdf_slice_count", n))
-        x, y, zc, tsdf, color = host_export(
-            (x, y, zc, tsdf, color), n, (-100000.0,) * 3 + (0.0, 0.5),
-            "export.tsdf_slice_rows")
-        self.export_TSDF_xyz = np.stack([x, y, zc], axis=1)
-        self.export_TSDF = tsdf
-        self.export_color = color
-        self.num_TSDF_particles = n
+        (self.export_TSDF_xyz, self.export_TSDF, self.export_color,
+         self.num_TSDF_particles) = exports_ops.unpack_export(
+            buf, self.max_disp_particles, True, "export.tsdf_slice_packed")
 
     def get_voxels_TSDF_surface(self):
         self.cvt_TSDF_surface_to_voxels()

@@ -13,7 +13,6 @@ import torch
 from taichislam_tpu_torch.core.config import OctomapConfig
 from taichislam_tpu_torch.core.grid import reset_grid
 from taichislam_tpu_torch.models.base_map import BaseMap, resolve_device
-from taichislam_tpu_torch.models.dense_tsdf import host_export
 from taichislam_tpu_torch.ops import exports as exports_ops
 from taichislam_tpu_torch.ops import occupancy as occ_ops
 from taichislam_tpu_torch.utils import profiling
@@ -98,16 +97,14 @@ class Octomap(BaseMap):
         bcap = min(exports_ops.pow2_capacity(
             int(host_read("octo.block_count", self.state.num_blocks)) + 1,
             lo=64), self.cfg.max_blocks)
-        x, y, z, color, n = occ_ops.occupy_export(
+        buf = occ_ops.occupy_export_packed(
             self.cfg, capacity, int(level), bcap, self.state,
             self._tensor(self.submaps_base_R_np, np.float32),
             self._tensor(self.submaps_base_T_np, np.float32),
             self.active_submap_id)
-        n = int(host_read("export.occupy_count", n))
-        x, y, z, color = host_export((x, y, z, color), n,
-                                     (-100000.0,) * 3 + (0.5,),
-                                     "export.occupy_rows")
-        return np.stack([x, y, z], axis=1), color, n
+        xyz, _, color, n = exports_ops.unpack_export(
+            buf, capacity, False, "export.occupy_packed")
+        return xyz, color, n
 
     def cvt_occupy_to_voxels(self, level=0):
         (self.export_x, self.export_color,

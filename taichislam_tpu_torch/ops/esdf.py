@@ -12,7 +12,8 @@ Counterpart of the JAX package's ``ops/esdf.py``:
   observed (or dirty) bounding box swept as one dense grid with full-length
   axis scans. The JAX package computes these in XLA, outside any Pallas
   kernel, and so do these plain PyTorch functions;
-- ``esdf_slice_export``: the ESDF z-slice as jet-colored particles;
+- ``esdf_slice_export``: the ESDF z-slice as jet-colored particles (its
+  ``*_packed`` variant in one buffer, ``exports.pack_export``);
 - ``neighbor_table`` and ``neighborhood_extrema``: the JAX module's public
   helpers for tests and debugging (no sweep runs through them).
 
@@ -22,11 +23,12 @@ See the JAX module for the algorithms. ``esdf_seed_dirty`` updates
 ``esdf_update_dense`` returns new tensors.
 
 ``esdf_seed_dirty``, ``esdf_update``, ``esdf_update_dense`` and
-``esdf_slice_export`` are units of ``ops/graphs.py``: on the card each call
-is one CUDA graph replay (the dense update three: set-up, a chunk of
-``_SWEEP_CHECK`` sweeps replayed until the device's flag reads false, and
-finish), the counterpart of the JAX package's jitted functions; their
-``*_ref`` twins are the eager bodies, which CPU tensors take.
+``esdf_slice_export`` (with ``esdf_slice_export_packed``) are units of
+``ops/graphs.py``: on the card each call is one CUDA graph replay (the
+dense update three: set-up, a chunk of ``_SWEEP_CHECK`` sweeps replayed
+until the device's flag reads false, and finish), the counterpart of the
+JAX package's jitted functions; their ``*_ref`` twins are the eager
+bodies, which CPU tensors take.
 """
 
 from __future__ import annotations
@@ -604,6 +606,26 @@ def esdf_update_ref(cfg: TSDFConfig, max_sweeps: int, block_cap: int, state,
 # z-slice export
 # ---------------------------------------------------------------------------
 
+def _slice_unit(name, ref, cfg, capacity, block_cap, state, esdf,
+                participate, base_R, base_T, active_submap, z, dz):
+    """``ref(...)`` on CPU state, else one replay of the slice export's
+    unit under the key ``name``."""
+    if graphs.eager(esdf):
+        return ref(cfg, capacity, block_cap, state, esdf, participate, base_R,
+                   base_T, active_submap, z, dz)
+    active = int(active_submap)
+
+    def body(w, s):
+        return ref(cfg, capacity, block_cap, state, esdf, participate,
+                   s["base_R"], s["base_T"], active, z, dz)
+    static = (name, cfg, int(capacity), int(block_cap), active, float(z),
+              float(dz))
+    return SLICE_EXPORT.call(
+        static, body, bound=graphs.leaves((state, esdf, participate)),
+        inputs={"base_R": (base_R, torch.float32),
+                "base_T": (base_T, torch.float32)})
+
+
 def esdf_slice_export(cfg: TSDFConfig, capacity: int, block_cap: int, state,
                       esdf, participate, base_R, base_T, active_submap: int,
                       z: float, dz: float):
@@ -613,22 +635,33 @@ def esdf_slice_export(cfg: TSDFConfig, capacity: int, block_cap: int, state,
     esdf, color (capacity, 3), kept), each padded to ``capacity``. CPU
     state: :func:`esdf_slice_export_ref`; on the card one graph replay
     (``ops/graphs.py``), the base poses (host arrays or tensors) staged."""
-    if graphs.eager(esdf):
-        return esdf_slice_export_ref(cfg, capacity, block_cap, state, esdf,
-                                     participate, base_R, base_T,
-                                     active_submap, z, dz)
-    active = int(active_submap)
+    return _slice_unit("esdf_slice_export", esdf_slice_export_ref, cfg,
+                       capacity, block_cap, state, esdf, participate, base_R,
+                       base_T, active_submap, z, dz)
 
-    def body(w, s):
-        return esdf_slice_export_ref(cfg, capacity, block_cap, state, esdf,
-                                     participate, s["base_R"], s["base_T"],
-                                     active, z, dz)
-    static = ("esdf_slice_export", cfg, int(capacity), int(block_cap),
-              active, float(z), float(dz))
-    return SLICE_EXPORT.call(
-        static, body, bound=graphs.leaves((state, esdf, participate)),
-        inputs={"base_R": (base_R, torch.float32),
-                "base_T": (base_T, torch.float32)})
+
+def esdf_slice_export_packed(cfg: TSDFConfig, capacity: int, block_cap: int,
+                             state, esdf, participate, base_R, base_T,
+                             active_submap: int, z: float, dz: float):
+    """:func:`esdf_slice_export` as one buffer (``exports.pack_export``:
+    xyz, esdf, color, kept), from the same unit. CPU state:
+    :func:`esdf_slice_export_packed_ref`."""
+    return _slice_unit("esdf_slice_export_packed",
+                       esdf_slice_export_packed_ref, cfg, capacity,
+                       block_cap, state, esdf, participate, base_R, base_T,
+                       active_submap, z, dz)
+
+
+def esdf_slice_export_packed_ref(cfg: TSDFConfig, capacity: int,
+                                 block_cap: int, state, esdf, participate,
+                                 base_R, base_T, active_submap: int,
+                                 z: float, dz: float):
+    """The eager body of :func:`esdf_slice_export_packed`."""
+    from taichislam_tpu_torch.ops.exports import pack_export
+    x, y, zc, e, col, kept = esdf_slice_export_ref(
+        cfg, capacity, block_cap, state, esdf, participate, base_R, base_T,
+        active_submap, z, dz)
+    return pack_export((x, y, zc), e, col, kept)
 
 
 def esdf_slice_export_ref(cfg: TSDFConfig, capacity: int, block_cap: int,

@@ -9,8 +9,11 @@ package's element for element. The world position sum
 ``R0·l0 + R1·l1 + R2·l2 + T`` is contracted as XLA contracts it (``dot3``).
 
 On the card ``tsdf_surface_export`` is a unit of ``ops/graphs.py``: one
-CUDA graph replay per call up to its count, which the caller reads; its
-``*_ref`` twin is the eager body, which CPU tensors take.
+CUDA graph replay per call; its ``*_ref`` twin is the eager body, which
+CPU tensors take. Each export has a ``*_packed`` variant, the one the
+models call: its outputs in one buffer in the host layout
+(:func:`pack_export`), which the host reads in one copy
+(:func:`unpack_export`).
 
 The byte layouts of ``sparse_gather_packed``, ``bitmap_gather_packed``
 and the numpy decoders are those of the JAX package, so a map or submap
@@ -121,6 +124,56 @@ def _gathered_xyz_c(spec: GridSpec, coords, ijk_c, base_R, base_T,
 SURFACE_EXPORT = graphs.UnitCache("tsdf_surface_export", size=2)
 
 
+def pack_export(xyz, values, color, kept):
+    """An export's outputs in one f32 buffer, in the host layout: the
+    ``xyz`` columns as (capacity, 3) row-major, ``values`` (capacity,)
+    unless None, ``color`` (capacity, 3), then ``kept``'s int32 bits.
+    Read it with :func:`unpack_export`."""
+    parts = [torch.stack(xyz, -1).reshape(-1).float()]
+    if values is not None:
+        parts.append(values.float())
+    parts += [color.reshape(-1).float(),
+              kept.reshape(1).to(torch.int32).view(torch.float32)]
+    return torch.cat(parts)
+
+
+def unpack_export(buf, capacity: int, with_values: bool, site: str):
+    """Host-side inverse of :func:`pack_export`: (xyz (capacity, 3), values
+    (capacity,) or None, color (capacity, 3), kept), numpy views of the
+    buffer, read once under ``site`` (from the card into pinned memory,
+    ``host_read(pinned=True)``): the views keep that block from the
+    allocator while any of them lives."""
+    buf = host_read(site, buf, pinned=True).numpy()
+    c = capacity
+    xyz = buf[:3 * c].reshape(c, 3)
+    o = 3 * c
+    values = None
+    if with_values:
+        values = buf[o:o + c]
+        o += c
+    color = buf[o:o + 3 * c].reshape(c, 3)
+    return xyz, values, color, int(buf[o + 3 * c:].view(np.int32)[0])
+
+
+def _surface_unit(name, ref, cfg, capacity, block_cap, state, base_R, base_T,
+                  active_submap):
+    """``ref(...)`` on CPU state, else one replay of the surface export's
+    unit under the key ``name``."""
+    if graphs.eager(state.table):
+        return ref(cfg, capacity, block_cap, state, base_R, base_T,
+                   active_submap)
+    active = int(active_submap)
+
+    def body(w, s):
+        return ref(cfg, capacity, block_cap, state, s["base_R"], s["base_T"],
+                   active)
+    return SURFACE_EXPORT.call(
+        (name, cfg, int(capacity), int(block_cap), active),
+        body, bound=graphs.leaves((state,)),
+        inputs={"base_R": (base_R, torch.float32),
+                "base_T": (base_T, torch.float32)})
+
+
 def tsdf_surface_export(cfg: TSDFConfig, capacity: int, block_cap: int,
                         state: GridState, base_R, base_T,
                         active_submap: int):
@@ -130,19 +183,29 @@ def tsdf_surface_export(cfg: TSDFConfig, capacity: int, block_cap: int,
     ``capacity``; colors are the texture, or jet by height. CPU state:
     :func:`tsdf_surface_export_ref`; on the card one graph replay
     (``ops/graphs.py``), the base poses (host arrays or tensors) staged."""
-    if graphs.eager(state.table):
-        return tsdf_surface_export_ref(cfg, capacity, block_cap, state,
-                                       base_R, base_T, active_submap)
-    active = int(active_submap)
+    return _surface_unit("tsdf_surface_export", tsdf_surface_export_ref,
+                         cfg, capacity, block_cap, state, base_R, base_T,
+                         active_submap)
 
-    def body(w, s):
-        return tsdf_surface_export_ref(cfg, capacity, block_cap, state,
-                                       s["base_R"], s["base_T"], active)
-    return SURFACE_EXPORT.call(
-        ("tsdf_surface_export", cfg, int(capacity), int(block_cap), active),
-        body, bound=graphs.leaves((state,)),
-        inputs={"base_R": (base_R, torch.float32),
-                "base_T": (base_T, torch.float32)})
+
+def tsdf_surface_export_packed(cfg: TSDFConfig, capacity: int,
+                               block_cap: int, state: GridState, base_R,
+                               base_T, active_submap: int):
+    """:func:`tsdf_surface_export` as one buffer (:func:`pack_export`:
+    xyz, tsdf, color, kept), from the same unit. CPU state:
+    :func:`tsdf_surface_export_packed_ref`."""
+    return _surface_unit("tsdf_surface_export_packed",
+                         tsdf_surface_export_packed_ref, cfg, capacity,
+                         block_cap, state, base_R, base_T, active_submap)
+
+
+def tsdf_surface_export_packed_ref(cfg: TSDFConfig, capacity: int,
+                                   block_cap: int, state: GridState, base_R,
+                                   base_T, active_submap: int):
+    """The eager body of :func:`tsdf_surface_export_packed`."""
+    x, y, z, col, tsdf, kept = tsdf_surface_export_ref(
+        cfg, capacity, block_cap, state, base_R, base_T, active_submap)
+    return pack_export((x, y, z), tsdf, col, kept)
 
 
 def tsdf_surface_export_ref(cfg: TSDFConfig, capacity: int, block_cap: int,
@@ -221,6 +284,17 @@ def tsdf_slice_export(cfg: TSDFConfig, capacity: int, block_cap: int,
     col = torch.where((torch.arange(capacity, device=dev) < kept)[:, None],
                       col, torch.full((), 0.5, device=dev))
     return outs[0], outs[1], outs[2], outs[3], col, kept
+
+
+def tsdf_slice_export_packed(cfg: TSDFConfig, capacity: int, block_cap: int,
+                             state: GridState, base_R, base_T,
+                             active_submap: int, z: float, dz: float):
+    """:func:`tsdf_slice_export` as one buffer (:func:`pack_export`: xyz,
+    tsdf, color, kept)."""
+    x, y, zc, tsdf, col, kept = tsdf_slice_export(
+        cfg, capacity, block_cap, state, base_R, base_T, active_submap, z,
+        dz)
+    return pack_export((x, y, zc), tsdf, col, kept)
 
 
 def count_active(cfg: TSDFConfig, state: GridState, active_submap: int):

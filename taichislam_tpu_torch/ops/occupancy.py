@@ -36,7 +36,8 @@ from taichislam_tpu_torch.core.grid import (GridState, allocate_blocks,
 from taichislam_tpu_torch.ops.exports import (_active_voxel_mask,
                                               _compact_blocks,
                                               _gathered_ijk_c,
-                                              _gathered_xyz_c, _intra_offsets)
+                                              _gathered_xyz_c, _intra_offsets,
+                                              pack_export)
 
 
 def make_octomap_state(cfg: OctomapConfig, device=None) -> GridState:
@@ -194,6 +195,16 @@ def occupy_export(cfg: OctomapConfig, capacity: int, level: int,
         col = torch.where((torch.arange(capacity, device=dev) < kept)[:, None],
                           col, torch.full((), 0.5, device=dev))
     return outs[0], outs[1], outs[2], col, kept
+
+
+def occupy_export_packed(cfg: OctomapConfig, capacity: int, level: int,
+                         block_cap: int, state: GridState, base_R, base_T,
+                         active_submap: int):
+    """:func:`occupy_export` as one buffer (``exports.pack_export``: xyz,
+    color, kept)."""
+    x, y, z, col, kept = occupy_export(cfg, capacity, level, block_cap,
+                                       state, base_R, base_T, active_submap)
+    return pack_export((x, y, z), None, col, kept)
 
 
 def fuse_submaps(sub_cfg: OctomapConfig, glob_cfg: OctomapConfig,

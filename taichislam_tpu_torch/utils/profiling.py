@@ -18,8 +18,9 @@ counters the port places where its work happens:
 - Tracing is on while ``TAICHISLAM_TRACE=1`` was set at import, after
   ``enable(True)``, or while a torch profiler records.
 - ``count(name, n)``: host counters in one dict, always on (``counts()``).
-  ``host_read(site, t)`` copies ``t`` to the host, counts it under
-  ``host_read/<site>`` and, while tracing, opens the span ``sync/<site>``.
+  ``host_read(site, t)`` copies ``t`` to the host (into pinned memory
+  with ``pinned=True``), counts it under ``host_read/<site>`` and, while
+  tracing, opens the span ``sync/<site>``.
   The kernels' wrappers count the work of each launch (``ops/kernels/
   build.count``), graph replays included.
 - Frame records: the node calls ``frame_begin(frame)`` / ``frame_end()``
@@ -142,18 +143,31 @@ def counts() -> Dict[str, int]:
         return dict(_counts)
 
 
-def host_read(site: str, t: torch.Tensor) -> torch.Tensor:
+def host_read(site: str, t: torch.Tensor, pinned: bool = False
+              ) -> torch.Tensor:
     """``t`` on the host (``t.cpu()``): the one way the port's paths read
     the device, counted under ``host_read/<site>`` (an empty tensor moves
     nothing and is not counted) and, while tracing, under the span
-    ``sync/<site>``."""
+    ``sync/<site>``. ``pinned``: a CUDA ``t`` lands in a block of
+    PyTorch's caching host allocator, by one non-blocking copy and a wait
+    on the stream; the block goes back to the allocator only once nothing
+    refers to it (a numpy view of it included)."""
     if t.numel() == 0:
         return t.cpu()
     count("host_read/" + site)
     if not (_enabled or _profiler_on()):
-        return t.cpu()
+        return _read(t, pinned)
     with span("sync/" + site):
+        return _read(t, pinned)
+
+
+def _read(t: torch.Tensor, pinned: bool) -> torch.Tensor:
+    if not (pinned and t.is_cuda):
         return t.cpu()
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    h.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+    return h
 
 
 # -- spans --------------------------------------------------------------------

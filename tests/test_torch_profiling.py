@@ -233,9 +233,8 @@ def test_node_writes_one_record_per_frame_with_its_stages(prof, capsys):
         assert c["host_read/tsdf.bin_load"] == 1
         assert c["host_read/esdf.verdict"] >= 1
         assert c["host_read/tsdf.block_count"] == 2
-        assert c["host_read/export.surface_count"] == 1
-        assert c["host_read/export.surface_rows"] == 5
-        assert c["host_read/export.esdf_slice_count"] == 1
+        assert c["host_read/export.surface_packed"] == 1
+        assert c["host_read/export.esdf_slice_packed"] == 1
         reads = sum(v for k, v in c.items() if k.startswith("host_read/"))
         syncs = sum(1 for s in r["spans"] if s["name"].startswith("sync/"))
         assert reads == syncs

@@ -2650,7 +2650,7 @@ def c3_phase(dev, smi, launches):
         f"graph == eager bit for bit after each of {2 * C3_FRAMES} frames "
         f"(tables, flags, TSDF, W, ESDF, fixed, pending, stats, "
         f"accumulators, buckets); graph captures {caps[0]} in pass 1 "
-        f"({cap_ms[0]:.1f} ms, warm-up included) and {caps[1]} in pass 2 "
+        f"({cap_ms[0]:.1f} ms) and {caps[1]} in pass 2 "
         f"({cap_ms[1]:.1f} ms); pass 1's verdicts [bins_total, dropped, "
         f"live_lanes, esdf_overflow], bin bucket, ESDF cap: {settling}; bin "
         f"bucket held at {floor} from pass 2")
@@ -2798,7 +2798,8 @@ def bench_phase(dev, smi, launches, eager_ms):
     log(f"[phase22] bench line: {json.dumps(out)}")
     log(f"[phase22] run_bench took {time.perf_counter() - t1:.1f} s; "
         f"graph captures {seq.graph_cache.captures} "
-        f"({seq.graph_cache.capture_ms:.1f} ms, warm-up included), replays "
+        f"({seq.graph_cache.capture_ms:.1f} ms), eager first calls "
+        f"{seq.graph_cache.eager_calls}, replays "
         f"{seq.graph_cache.replays}; launches {got}, K1 by site {sites}")
     want = {"fusion": (2, 0, 0), "primary": (2, 0, 1),
             "drained": (2, 0, 1), "big": (2, 0, 0)}

@@ -560,11 +560,11 @@ class DenseTSDF(BaseMap):
     def _reduce(self, submaps: "DenseTSDF", bcap: int, only_submap, slots,
                 cap_limit: int):
         """Reduce until nothing drops: the touched capacity (global side)
-        and the source block cap (up to ``cap_limit``) grow between
-        attempts. The verdict is one host read per attempt, each attempt
-        under the span ``fusion.reduce``; ``fusion/retries`` counts the
-        attempts past the first. Returns (reduced, global cfg, bcap,
-        attempts, sources dropped)."""
+        and the source block cap (by :func:`_block_cap`, up to
+        ``cap_limit``) grow between attempts. The verdict is one host read
+        per attempt, each attempt under the span ``fusion.reduce``;
+        ``fusion/retries`` counts the attempts past the first. Returns
+        (reduced, global cfg, bcap, attempts, sources dropped)."""
         touched_cap = getattr(self, "_fuse_touched_bucket",
                               self.cfg.max_touched_blocks)
         bases = self._bases()
@@ -591,10 +591,7 @@ class DenseTSDF(BaseMap):
                 touched_cap = min(touched_cap, self.cfg.max_blocks)
                 continue
             if src_over > 0 and bcap < cap_limit:
-                target = min(bcap + src_over, cap_limit)
-                while bcap < target:
-                    bcap *= 2
-                bcap = min(bcap, cap_limit)
+                bcap = _block_cap(bcap + src_over, cap_limit)
                 continue
             break
         profiling.count("fusion/retries", attempts - 1)
@@ -669,14 +666,14 @@ class DenseTSDF(BaseMap):
         weighted merge is associative, so fusing each submap once equals
         reset + refuse-all until PGO moves base poses (then the caller
         takes :meth:`fuse_submaps`). ``sub_bcap`` bounds the submap's own
-        blocks (default: the whole collection's, at most
-        ``_FUSE_GROUP_BLOCKS``). The capacity verdict is
-        settled before this returns, also with ``defer_verdict=True``."""
+        blocks (default: the first pass's cap of a full refuse of the
+        collection). The capacity verdict is settled before this returns,
+        also with ``defer_verdict=True``."""
         with profiling.span("submap.refuse") as sp:
             sub_max = submaps.cfg.max_blocks
             bcap = min(int(sub_bcap), sub_max) if sub_bcap is not None \
-                else _block_cap(min(self._collection_blocks(submaps) + 1,
-                                    _FUSE_GROUP_BLOCKS), sub_max)
+                else self._refuse_passes(self._collection_blocks(submaps),
+                                         sub_max)[0][1]
             self._fuse(submaps, [(None, bcap)], int(submap_id), False)
         print(f"[DenseTSDF] Fuse submap {submap_id} incrementally "
               f"{sp.ms:.1f}ms")

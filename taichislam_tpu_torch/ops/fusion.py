@@ -223,30 +223,45 @@ def fuse_apply(glob_cfg: TSDFConfig, global_state: GridState,
     w_sum = torch.where(row_ok[:, None], acc[:, 0, :], zero)
     wd_sum = torch.where(row_ok[:, None], acc[:, 1, :], zero)
     occ_sum = torch.where(row_ok[:, None], acc[:, 2, :], zero)
+    _merge(global_state.channels, tgt, w_sum, wd_sum, occ_sum,
+           (lambda: torch.where(row_ok[:, None, None], acc[:, 3:6, :],
+                                zero)) if glob_cfg.texture_enabled else None)
+    return global_state
 
-    ch = global_state.channels
-    D = ch["TSDF"][tgt].float()
-    W = ch["W_TSDF"][tgt].float()
+
+def _merge(ch, rows, w_sum, wd_sum, occ_sum, wc):
+    """The closed-form weighted merge of the sums into the channels ``ch``
+    (no Wmax clamp): ``D' = (D·W + Σw·d) / (W + Σw)``, ``W' = W + Σw``,
+    the observed flag, ``occupy += Σocc`` and, when ``wc()`` gives Σw·c
+    (None untextured), the color ``(c·W + Σw·c) / W'``. At the slots
+    ``rows`` (gathered, merged and written back), or over every slot when
+    ``rows`` is None; then the garbage row is cleared."""
+    def read(k):
+        return ch[k] if rows is None else ch[k][rows]
+
+    def write(k, v):
+        if rows is None:
+            ch[k].copy_(v)
+        else:
+            ch[k][rows] = v.to(ch[k].dtype)
+    D = read("TSDF").float()
+    W = read("W_TSDF").float()
     touched_v = w_sum > 0
     new_W = W + w_sum
-    ch["TSDF"][tgt] = torch.where(touched_v, fma(D, W, wd_sum) / new_W,
-                                  D).to(glob_cfg.dtype)
-    ch["W_TSDF"][tgt] = new_W.to(glob_cfg.dtype)
-    ch["TSDF_observed"][tgt] = torch.maximum(ch["TSDF_observed"][tgt],
-                                             touched_v.to(torch.int8))
-    ch["occupy"][tgt] = (ch["occupy"][tgt].to(torch.int32) +
-                         occ_sum.to(torch.int32)).to(torch.int8)
-    if glob_cfg.texture_enabled:
+    write("TSDF", torch.where(touched_v, fma(D, W, wd_sum) / new_W, D))
+    write("W_TSDF", new_W)
+    write("TSDF_observed", torch.maximum(read("TSDF_observed"),
+                                         touched_v.to(torch.int8)))
+    write("occupy", read("occupy").to(torch.int32) +
+          occ_sum.to(torch.int32))
+    if wc is not None:
         den = torch.clamp(new_W, min=1e-20)
-        col = ch["color"][tgt].float()                  # (T, 3, V³)
-        wc = torch.where(row_ok[:, None, None], acc[:, 3:6, :], zero)
-        new_c = torch.where(touched_v[:, None, :],
-                            fma(col, W[:, None, :], wc) / den[:, None, :],
-                            col)
-        ch["color"][tgt] = new_c.to(glob_cfg.dtype)
+        col = read("color").float()                     # (T, 3, V³)
+        write("color", torch.where(touched_v[:, None, :],
+                                   fma(col, W[:, None, :], wc()) /
+                                   den[:, None, :], col))
     for v in ch.values():
         v[-1] = 0
-    return global_state
 
 
 # ---------------------------------------------------------------------------
@@ -309,29 +324,10 @@ def combine_accumulators(glob_cfg: TSDFConfig, global_state: GridState,
     gspec = glob_cfg.grid
     nb = gspec.max_blocks + 1
     V3 = gspec.voxels_per_block
-    ch = global_state.channels
-    w_sum = w_sum.reshape(nb, V3)
-    D = ch["TSDF"].float()
-    W = ch["W_TSDF"].float()
-    touched_v = w_sum > 0
-    new_W = W + w_sum
-    ch["TSDF"].copy_(torch.where(touched_v,
-                                 fma(D, W, wd_sum.reshape(nb, V3)) / new_W,
-                                 D))
-    ch["W_TSDF"].copy_(new_W)
-    ch["TSDF_observed"].copy_(torch.maximum(ch["TSDF_observed"],
-                                            touched_v.to(torch.int8)))
-    ch["occupy"].copy_(ch["occupy"].to(torch.int32) +
-                       occ_sum.reshape(nb, V3))
-    if glob_cfg.texture_enabled:
-        den = torch.clamp(new_W, min=1e-20)
-        col = ch["color"].float()                          # (nb, 3, V³)
-        wc = wc_sum.reshape(3, nb, V3).permute(1, 0, 2)
-        ch["color"].copy_(torch.where(touched_v[:, None, :],
-                                      fma(col, W[:, None, :], wc) /
-                                      den[:, None, :], col))
-    for v in ch.values():
-        v[-1] = 0
+    _merge(global_state.channels, None, w_sum.reshape(nb, V3),
+           wd_sum.reshape(nb, V3), occ_sum.reshape(nb, V3),
+           (lambda: wc_sum.reshape(3, nb, V3).permute(1, 0, 2))
+           if glob_cfg.texture_enabled else None)
     return global_state
 
 

@@ -6,8 +6,8 @@ compiled XLA program (``integrate_depth``, ``esdf_seed_dirty``,
 ``extract_mesh``), keyed by its static arguments and input shapes; the
 host reads only between programs. On the card the port runs each such unit
 as one replay of a captured CUDA graph (the dense ESDF as three: before,
-inside and after its sweep loop), and ``ops/sequence.py`` runs its frame
-body the same way. This module holds what they share:
+inside and after its sweep loop), and ``ops/sequence.py`` runs each frame
+of a window as one call of its unit. This module holds what they share:
 
 - a unit keeps a cache of its own (:class:`UnitCache`, listed in
   ``UNITS``), so that the units of one frame do not evict each other; a
@@ -23,13 +23,11 @@ body the same way. This module holds what they share:
   unit produced) are copied into the entry's static slots in stream order
   (:func:`stage`): host data through pinned memory, a tensor on the card
   device to device; a capture holds no host-to-device copy;
-- a key's first call runs the body eagerly on the real tensors: the
-  kernels build and set their one-time attributes outside any capture,
-  and a key seen once costs no capture (JAX compiles a key once); its
-  second call captures, and every later call replays. Nothing else runs a
-  body eagerly on the card. (The sequences capture at a key's first call,
-  after a warm-up of the body on a scratch clone of the state it writes:
-  :meth:`UnitCache.warm_up`.);
+- every unit, the sequences included, runs the body eagerly on the real
+  tensors at a key's first call: the kernels build and set their one-time
+  attributes outside any capture, and a key seen once costs no capture
+  (JAX compiles a key once); its second call captures, and every later
+  call replays;
 - captures use ``capture_error_mode="thread_local"`` (a submap finalize
   thread or the topo worker may use CUDA meanwhile); a failed capture or
   replay raises, nothing falls back to the eager body;
@@ -42,7 +40,7 @@ body the same way. This module holds what they share:
   they are. A cached graph keeps no reference to the caller's objects, so
   an entry dies with the model whose tensors it holds.
 
-While a body warms up or is captured, every op runs its eager body
+While a body runs eagerly or is captured, every op runs its eager body
 (:func:`eager`), so a unit's body may call other units' ops. CPU tensors
 always take the eager bodies; nothing here starts CUDA at import.
 """
@@ -58,7 +56,7 @@ import weakref
 import numpy as np
 import torch
 
-from taichislam_tpu_torch.core.grid import GridState, clone_state
+from taichislam_tpu_torch.core.grid import GridState
 from taichislam_tpu_torch.ops.kernels import build
 from taichislam_tpu_torch.utils import profiling
 
@@ -74,14 +72,16 @@ UNITS = {}
 
 def eager(t: torch.Tensor) -> bool:
     """Whether an op on ``t`` runs its eager body: ``t`` is not on the
-    card, or this thread is warming up or capturing a body."""
+    card, or this thread is running a unit's body eagerly or capturing
+    it."""
     return (t.device.type != "cuda" or getattr(_tls, "bodies", 0) > 0 or
             torch.cuda.is_current_stream_capturing())
 
 
 @contextlib.contextmanager
 def bodies():
-    """Run the ops called inside as eager bodies (a warm-up or capture)."""
+    """Run the ops called inside as eager bodies (a unit's body run
+    eagerly or captured)."""
     _tls.bodies = getattr(_tls, "bodies", 0) + 1
     try:
         yield
@@ -135,10 +135,10 @@ def params(xs, dev):
 
 def stage(slot, x):
     """Copy ``x`` into a static slot in stream order: a tensor on the card
-    device to device, host data through pinned memory. The pinned block
-    comes from PyTorch's caching host allocator, which records the copy's
-    event and hands the block out again only once the copy has completed,
-    so no staging buffer is overwritten early."""
+    device to device, host data through pinned memory (into a slot on the
+    card). The pinned block comes from PyTorch's caching host allocator,
+    which records the copy's event and hands the block out again only once
+    the copy has completed, so no staging buffer is overwritten early."""
     if tuple(x.shape) != tuple(slot.shape):
         raise ValueError(f"input shape {tuple(x.shape)}: this graph takes "
                          f"{tuple(slot.shape)}")
@@ -147,8 +147,10 @@ def stage(slot, x):
         return
     if isinstance(x, torch.Tensor):
         x = x.numpy()
-    host = np.ascontiguousarray(x, dtype=_NP_DTYPE[slot.dtype])
-    slot.copy_(torch.from_numpy(host).pin_memory(), non_blocking=True)
+    host = torch.from_numpy(np.ascontiguousarray(
+        x, dtype=_NP_DTYPE[slot.dtype]))
+    slot.copy_(host.pin_memory() if slot.is_cuda else host,
+               non_blocking=True)
 
 
 class _Own:
@@ -200,13 +202,6 @@ def detach(out, own):
             return x.clone()
         return _DESCEND
     return _map(out, node)
-
-
-def scratch(objs):
-    """Clones of ``objs`` (GridStates and tensors) that share no tensor
-    with them."""
-    return tuple(clone_state(o) if isinstance(o, GridState) else
-                 (None if o is None else o.clone()) for o in objs)
 
 
 # device index -> (memory pool, the graph that holds it, capture stream)
@@ -320,9 +315,8 @@ class Entry:
 class UnitCache:
     """A unit's entries by key, at most ``size``, the least recently used
     evicted first, entries whose tensors died dropped. ``captures``,
-    ``capture_ms`` (host wall time of the captures, a warm-up included),
-    ``replays`` and ``eager_calls`` (a key's first call) count since
-    :meth:`reset_counts`."""
+    ``capture_ms`` (host wall time of the captures), ``replays`` and
+    ``eager_calls`` (a key's first call) count since :meth:`reset_counts`."""
 
     def __init__(self, name: str, size: int = 4):
         self.name, self.size = name, size
@@ -343,7 +337,7 @@ class UnitCache:
     def _drop(self, k):
         self.entries.pop(k).release()
 
-    def get(self, k, tensors, make):
+    def _get(self, k, tensors, make):
         """The entry under ``k`` (made by ``make()`` when there is none, or
         when it holds other tensors at the same addresses)."""
         for dead in [d for d, e in self.entries.items() if not e.alive()]:
@@ -365,26 +359,25 @@ class UnitCache:
         staged into its slots, and whether this is the key's first call,
         which runs the body eagerly (and counts it)."""
         dev = tensors[0].device
-        entry = self.get(key(static, tensors, inputs, dev), tensors,
-                         lambda: Entry(tensors, slot_specs(inputs), dev))
+        entry = self._get(key(static, tensors, inputs, dev), tensors,
+                          lambda: Entry(tensors, slot_specs(inputs), dev))
         entry.stage(inputs)
         entry.calls += 1
         first = entry.calls == 1
         self.eager_calls += first
         return entry, first
 
-    def capture(self, entry, name, fn, t0=None, own=()):
+    def capture(self, entry, name, fn, own=()):
         """Capture ``fn`` as the entry's graph ``name`` (its outputs hold
-        no reference to the caller's objects ``own``); ``t0`` (host clock)
-        starts the capture's time earlier, at its warm-up."""
-        t0 = time.perf_counter() if t0 is None else t0
+        no reference to the caller's objects ``own``)."""
+        t0 = time.perf_counter()
         with profiling.span("unit.capture/" + self.name):
             entry.graphs[name] = Captured(fn, own)
         self.captures += 1
         self.capture_ms += 1000 * (time.perf_counter() - t0)
         return entry.graphs[name]
 
-    def replay(self, entry, name):
+    def _replay(self, entry, name):
         self.replays += 1
         return entry.graphs[name].replay()
 
@@ -393,14 +386,7 @@ class UnitCache:
         when the entry has none by that name."""
         if name not in entry.graphs:
             self.capture(entry, name, fn, own=own)
-        return self.replay(entry, name)
-
-    @staticmethod
-    def warm_up(body, written, slots, dev):
-        """Run ``body`` once eagerly on a scratch clone of ``written``."""
-        with bodies():
-            body(scratch(written), slots)
-        torch.cuda.synchronize(dev)
+        return self._replay(entry, name)
 
     def call(self, static, body, written=(), bound=(), inputs=None):
         """One call of a unit on the card: ``body(written, slots)`` run

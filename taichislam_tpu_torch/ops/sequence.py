@@ -14,40 +14,26 @@ a Python int. As everywhere in this package the state is updated IN PLACE
 and returned, and so are ``esdf``, ``fixed``, ``pending``, ``seen_tsdf``
 and ``seen_obs``.
 
-Two ways to run the same frame body (``ops/tsdf.integrate_depth``, then
-with the ESDF ``ops/esdf.esdf_seed_dirty`` and ``ops/esdf.esdf_update`` on
-the dirty set and the pending wavefront, the JAX scan body):
-
-- ``*_ref``: the plain eager loop over the frames. CPU tensors take it.
-- CUDA tensors take a captured CUDA graph of one frame body, the
-  counterpart of the jitted dispatch: the frame's depth, texture, pose and
-  intrinsics are copied into the graph's static slots in stream order (a
-  host frame through pinned memory, a device frame device to device) and
-  the graph is replayed, once per frame, with no host sync; the replay
-  updates the state in place and folds the frame's stats into the graph's
-  window accumulators (running maxima and the union of touched blocks),
-  which the caller reads once per window. The kernels inside are K1 (bins
-  and march sites) and K3, or K2 at a budget of 1.
-
-Graphs live in ``graph_cache`` (an ``ops/graphs.UnitCache`` of
-:class:`FrameGraph` entries), keyed as JAX keys its jit cache (the cfg
-with its buckets, the ESDF budget and block cap, the active submap, the
-frame shapes, the device) and also on the addresses of the state tensors
-the graph writes; a few entries, least recently used first out, an
-evicted graph's memory back in the device's shared graph pool. Before its
-capture a graph's body runs once eagerly on a scratch clone of the state,
-so that the kernels build and set their one-time attributes outside the
-capture while the map is written once. The capture uses
-``capture_error_mode="thread_local"`` (a submap finalize thread may use
-CUDA meanwhile). A failed capture or replay raises: nothing falls back to
-the eager loop, which only the ``*_ref`` names reach. The frame body calls
-the ops' eager bodies (``integrate_depth_ref``, ``esdf_seed_dirty_ref``,
+One frame body (``ops/tsdf.integrate_depth``, then with the ESDF
+``ops/esdf.esdf_seed_dirty`` and ``ops/esdf.esdf_update`` on the dirty set
+and the pending wavefront, the JAX scan body) and one loop over the
+window, which folds each frame's stats row into the window maxima and its
+touched blocks into their union. CPU state runs the body eagerly, and so
+do the ``*_ref`` names on every device. State on the card runs each frame
+as one call of the unit ``graph_cache`` (``ops/graphs.py``), the
+counterpart of the jitted dispatch: the frame's depth, texture and 30
+pose and intrinsics floats are staged into the entry's slots in stream
+order, and the body runs eagerly at the key's first call, is captured at
+its second and replayed after that, with no host sync. The static key is
+the cfg with its buckets, the ESDF budget and block cap and the active
+submap; the unit adds the state's addresses, the frame shapes and the
+device, as JAX keys its jit cache. The kernels inside are K1 (bins and
+march sites) and K3, or K2 at a budget of 1. The frame body calls the
+ops' eager bodies (``integrate_depth_ref``, ``esdf_seed_dirty_ref``,
 ``esdf_update_ref``), so that the plain loop is eager on the card too.
 """
 
 from __future__ import annotations
-
-import time
 
 import numpy as np
 import torch
@@ -59,13 +45,7 @@ from taichislam_tpu_torch.ops import graphs
 from taichislam_tpu_torch.ops import tsdf as tsdf_ops
 
 _I32 = torch.int32
-_PARAMS = 30   # per frame: R (9), T (3), K_dep (9), K_color (9)
-_NP_DTYPE = {torch.int32: np.int32, torch.uint8: np.uint8}
 
-
-# ---------------------------------------------------------------------------
-# the frame body, shared by both paths
-# ---------------------------------------------------------------------------
 
 def _frame_step(cfg: TSDFConfig, budget, block_cap, state: GridState, es,
                 depth, tex, par, active_submap: int):
@@ -113,11 +93,13 @@ def _frames(x):
                                                           range(len(x))]
 
 
-def _textures(cfg, textures, F):
-    """Per-frame textures: the frames when the map is textured, else None
-    (the body reads a (1, 1, 3) dummy)."""
-    if not cfg.texture_enabled or textures is None:
+def _textures(cfg, textures, F, dev):
+    """Per-frame textures: the frames when the map is textured (a
+    (1, 1, 3) zero texture when none is given), else None."""
+    if not cfg.texture_enabled:
         return None
+    if textures is None:
+        return [torch.zeros((1, 1, 3), dtype=torch.uint8, device=dev)] * F
     tex = _frames(textures)
     if len(tex) == 1 and F > 1:
         tex = tex * F
@@ -128,71 +110,99 @@ def _textures(cfg, textures, F):
 
 def _params(Rs, Ts, K_dep, K_color, F, dev):
     """(F, 30) f32 on ``dev``: each frame's R, T, K_dep, K_color. Host
-    inputs go up in one copy through pinned memory."""
-    if all(graphs.on_host(x) for x in (Rs, Ts, K_dep, K_color)):
-        def h(x):
-            return np.asarray(x.numpy() if isinstance(x, torch.Tensor)
-                              else x, np.float32)
-        par = np.concatenate([
-            h(Rs).reshape(F, 9), h(Ts).reshape(F, 3),
-            np.broadcast_to(h(K_dep).reshape(1, 9), (F, 9)),
-            np.broadcast_to(h(K_color).reshape(1, 9), (F, 9))], axis=1)
-        return _upload(np.ascontiguousarray(par), dev)
-    t = [torch.as_tensor(x, dtype=torch.float32, device=dev)
-         for x in (Rs, Ts, K_dep, K_color)]
-    return torch.cat([t[0].reshape(F, 9), t[1].reshape(F, 3),
-                      t[2].reshape(1, 9).expand(F, 9),
-                      t[3].reshape(1, 9).expand(F, 9)], dim=1)
-
-
-def _upload(arr, dev):
-    t = torch.from_numpy(arr)
-    if dev.type != "cuda":
-        return t.to(dev)
-    return t.pin_memory().to(dev, non_blocking=True)
-
-
-def _frame_tensor(frame, dtype, dev):
-    """One frame as a ``dtype`` tensor on ``dev`` (the eager path)."""
-    if isinstance(frame, torch.Tensor):
-        return frame.to(device=dev, dtype=dtype)
-    return torch.as_tensor(np.asarray(frame, _NP_DTYPE[dtype]), device=dev)
-
-
-def _dummy_texture(dev):
-    return torch.zeros((1, 1, 3), dtype=torch.uint8, device=dev)
+    inputs go up in one staged copy."""
+    v = graphs.params((Rs, Ts, K_dep, K_color), dev)
+    if isinstance(v, np.ndarray):
+        t = torch.empty(v.shape, dtype=torch.float32, device=dev)
+        graphs.stage(t, v)
+        v = t
+    k = 12 * F
+    return torch.cat([v[:9 * F].view(F, 9), v[9 * F:k].view(F, 3),
+                      v[k:k + 9].expand(F, 9), v[k + 9:].expand(F, 9)],
+                     dim=1)
 
 
 # ---------------------------------------------------------------------------
-# the plain versions
+# the window
 # ---------------------------------------------------------------------------
 
-def _window_ref(cfg, budget, block_cap, state, es, depths, textures, Rs, Ts,
-                K_dep, K_color, active_submap):
+graph_cache = graphs.UnitCache("sequence", size=4)
+
+
+def _window(cfg, budget, block_cap, state, es, depths, textures, Rs, Ts,
+            K_dep, K_color, active_submap):
+    """The frames in order, each the frame body run eagerly
+    (:func:`graphs.eager`) or one call of ``graph_cache``; returns the
+    window's stats."""
     dev = state.table.device
     frames = _frames(depths)
     F = len(frames)
-    tex = _textures(cfg, textures, F)
+    tex = _textures(cfg, textures, F, dev)
     par = _params(Rs, Ts, K_dep, K_color, F, dev)
+    active = int(active_submap)
+    written = (state,) + tuple(es or ())
+
+    def body(w, s):
+        return _frame_step(cfg, budget, block_cap, w[0], tuple(w[1:]) or None,
+                           s["depth"], s.get("tex"), s["par"], active)
+    eager = graphs.eager(state.table)
     rows, union = [], None
     for f in range(F):
-        t = _dummy_texture(dev) if tex is None else \
-            _frame_tensor(tex[f], torch.uint8, dev)
-        row, touched = _frame_step(
-            cfg, budget, block_cap, state, es,
-            _frame_tensor(frames[f], _I32, dev), t, par[f],
-            int(active_submap))
+        inputs = {"depth": (frames[f], _I32), "par": (par[f], torch.float32)}
+        if tex is not None:
+            inputs["tex"] = (tex[f], torch.uint8)
+        if eager:
+            row, touched = body(written, {n: v for n, (v, _) in
+                                          inputs.items()})
+        else:
+            row, touched = graph_cache.call(
+                ("sequence", cfg, budget, block_cap, active), body,
+                written=written, inputs=inputs)
         rows.append(row)
-        union = touched.clone() if union is None else union | touched
-    return _stats(torch.stack(rows).amax(0), union)
+        union = touched if union is None else union | touched
+    return _stats(rows[0] if F == 1 else torch.stack(rows).amax(0), union)
+
+
+def integrate_depth_sequence(cfg: TSDFConfig, state: GridState, depths,
+                             textures, Rs, Ts, K_dep, K_color,
+                             active_submap: int):
+    """Fuse a window of ``depths`` with per-frame submap-frame poses
+    ``Rs``, ``Ts``. Returns (state, stats) with ``max_bins_total``,
+    ``max_dropped``, ``max_live_lanes`` (0-d int32) and ``touched_blocks``
+    (the window's union). State on the card: one call of ``graph_cache``
+    per frame; CPU state: :func:`integrate_depth_sequence_ref`."""
+    stats = _window(cfg, 0, 0, state, None, depths, textures, Rs, Ts,
+                    K_dep, K_color, active_submap)
+    return state, stats
+
+
+def integrate_esdf_sequence(cfg: TSDFConfig, esdf_budget: int,
+                            esdf_block_cap: int, state: GridState, esdf,
+                            fixed, pending, seen_tsdf, seen_obs, depths,
+                            textures, Rs, Ts, K_dep, K_color,
+                            active_submap: int):
+    """Fusion and the per-frame gated incremental ESDF over a window:
+    per frame ``integrate_depth``, ``esdf_seed_dirty``, and
+    ``esdf_update`` in block mode at ``esdf_budget`` sweeps and
+    ``esdf_block_cap`` rows on the dirty set and the ``pending``
+    wavefront, which it re-queues. Returns (state, esdf, fixed, pending,
+    seen_tsdf, seen_obs, stats), stats as :func:`integrate_depth_sequence`
+    with ``max_esdf_overflow``. State on the card: one call of
+    ``graph_cache`` per frame; CPU state:
+    :func:`integrate_esdf_sequence_ref`."""
+    es = (esdf, fixed, pending, seen_tsdf, seen_obs)
+    stats = _window(cfg, esdf_budget, esdf_block_cap, state, es, depths,
+                    textures, Rs, Ts, K_dep, K_color, active_submap)
+    return (state, esdf, fixed, pending, seen_tsdf, seen_obs, stats)
 
 
 def integrate_depth_sequence_ref(cfg: TSDFConfig, state: GridState, depths,
                                  textures, Rs, Ts, K_dep, K_color,
                                  active_submap: int):
     """Plain version of :func:`integrate_depth_sequence`: the eager loop
-    of ``integrate_depth`` over the frames."""
-    stats = _window_ref(cfg, 0, 0, state, None, depths, textures, Rs, Ts,
+    of ``integrate_depth`` over the frames, on every device."""
+    with graphs.bodies():
+        stats = _window(cfg, 0, 0, state, None, depths, textures, Rs, Ts,
                         K_dep, K_color, active_submap)
     return state, stats
 
@@ -203,9 +213,11 @@ def integrate_esdf_sequence_ref(cfg: TSDFConfig, esdf_budget: int,
                                 textures, Rs, Ts, K_dep, K_color,
                                 active_submap: int):
     """Plain version of :func:`integrate_esdf_sequence`: the eager loop of
-    ``integrate_depth``, ``esdf_seed_dirty`` and ``esdf_update``."""
+    ``integrate_depth``, ``esdf_seed_dirty`` and ``esdf_update``, on every
+    device."""
     es = (esdf, fixed, pending, seen_tsdf, seen_obs)
-    stats = _window_ref(cfg, esdf_budget, esdf_block_cap, state, es, depths,
+    with graphs.bodies():
+        stats = _window(cfg, esdf_budget, esdf_block_cap, state, es, depths,
                         textures, Rs, Ts, K_dep, K_color, active_submap)
     return (state, esdf, fixed, pending, seen_tsdf, seen_obs, stats)
 
@@ -225,120 +237,3 @@ def accumulate_frame_verdict(pack_prev, union_prev, stats):
 
 # the fold is the same plain tensor ops on every device
 accumulate_frame_verdict_ref = accumulate_frame_verdict
-
-
-# ---------------------------------------------------------------------------
-# the graph path
-# ---------------------------------------------------------------------------
-
-class FrameGraph(graphs.Entry):
-    """One key's captured frame body: the static input slots (depth,
-    texture, the 30 pose and intrinsics floats), the window accumulators
-    (``pack``, the running maxima, and ``union``, the touched blocks) and
-    the graph ``"frame"``, whose replays add its launch tally to the
-    kernels' counters."""
-
-    def __init__(self, cfg, budget, block_cap, active_submap, tensors,
-                 depth_shape, tex_shape, n_stats, dev):
-        super().__init__(tensors, {
-            "depth": (depth_shape, torch.int32),
-            "tex": (tex_shape, torch.uint8),
-            "par": ((_PARAMS,), torch.float32)}, dev)
-        self.cfg, self.budget, self.block_cap = cfg, budget, block_cap
-        self.active_submap = active_submap
-        self.pack = torch.zeros((n_stats,), dtype=_I32, device=dev)
-        self.union = torch.zeros((cfg.grid.max_blocks + 1,),
-                                 dtype=torch.bool, device=dev)
-
-    def _body(self, written, slots):
-        state, pack, union, *es = written
-        row, touched = _frame_step(self.cfg, self.budget, self.block_cap,
-                                   state, tuple(es) or None, slots["depth"],
-                                   slots["tex"], slots["par"],
-                                   self.active_submap)
-        torch.maximum(pack, row, out=pack)
-        union.logical_or_(touched)
-
-    def capture(self, cache, state, es):
-        """Warm up on a scratch clone of the state and the accumulators
-        (kernels built, their first-call attributes set), then capture the
-        body on the real tensors. Raises when the capture fails."""
-        t0 = time.perf_counter()
-        written = (state, self.pack, self.union) + tuple(es or ())
-        cache.warm_up(self._body, written, self.slots, self.pack.device)
-        cache.capture(self, "frame", lambda: self._body(written, self.slots),
-                      t0)
-
-
-graph_cache = graphs.UnitCache("sequence", size=4)
-
-
-def _window_graph(cfg, budget, block_cap, state, es, depths, textures, Rs,
-                  Ts, K_dep, K_color, active_submap):
-    dev = state.table.device
-    frames = _frames(depths)
-    F = len(frames)
-    tex = _textures(cfg, textures, F)
-    depth_shape = tuple(frames[0].shape)
-    tex_shape = (1, 1, 3) if tex is None else tuple(tex[0].shape)
-    tensors = graphs.leaves((state,) + (tuple(es) if es is not None else ()))
-    active = int(active_submap)
-    key = (cfg, budget, block_cap, active, depth_shape, tex_shape, str(dev),
-           tuple(t.data_ptr() for t in tensors))
-    n_stats = 3 if es is None else 4
-    g = graph_cache.get(key, tensors, lambda: FrameGraph(
-        cfg, budget, block_cap, active, tensors, depth_shape, tex_shape,
-        n_stats, dev))
-    par = _params(Rs, Ts, K_dep, K_color, F, dev)
-    g.pack.zero_()
-    g.union.zero_()
-    for f in range(F):
-        graphs.stage(g.slots["depth"], frames[f])
-        if tex is not None:
-            graphs.stage(g.slots["tex"], tex[f])
-        g.slots["par"].copy_(par[f])
-        if "frame" not in g.graphs:
-            g.capture(graph_cache, state, es)
-        graph_cache.replay(g, "frame")
-    return _stats(g.pack.clone(), g.union.clone())
-
-
-def _window(cfg, budget, block_cap, state, es, *inputs):
-    dev = state.table.device
-    if dev.type == "cpu":
-        return _window_ref(cfg, budget, block_cap, state, es, *inputs)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    return _window_graph(cfg, budget, block_cap, state, es, *inputs)
-
-
-def integrate_depth_sequence(cfg: TSDFConfig, state: GridState, depths,
-                             textures, Rs, Ts, K_dep, K_color,
-                             active_submap: int):
-    """Fuse a window of ``depths`` with per-frame submap-frame poses
-    ``Rs``, ``Ts``. Returns (state, stats) with ``max_bins_total``,
-    ``max_dropped``, ``max_live_lanes`` (0-d int32) and ``touched_blocks``
-    (the window's union). CUDA state: one graph replay per frame; CPU
-    state: :func:`integrate_depth_sequence_ref`."""
-    stats = _window(cfg, 0, 0, state, None, depths, textures, Rs, Ts,
-                    K_dep, K_color, active_submap)
-    return state, stats
-
-
-def integrate_esdf_sequence(cfg: TSDFConfig, esdf_budget: int,
-                            esdf_block_cap: int, state: GridState, esdf,
-                            fixed, pending, seen_tsdf, seen_obs, depths,
-                            textures, Rs, Ts, K_dep, K_color,
-                            active_submap: int):
-    """Fusion and the per-frame gated incremental ESDF over a window:
-    per frame ``integrate_depth``, ``esdf_seed_dirty``, and
-    ``esdf_update`` in block mode at ``esdf_budget`` sweeps and
-    ``esdf_block_cap`` rows on the dirty set and the ``pending``
-    wavefront, which it re-queues. Returns (state, esdf, fixed, pending,
-    seen_tsdf, seen_obs, stats), stats as :func:`integrate_depth_sequence`
-    with ``max_esdf_overflow``. CUDA state: one graph replay per frame;
-    CPU state: :func:`integrate_esdf_sequence_ref`."""
-    es = (esdf, fixed, pending, seen_tsdf, seen_obs)
-    stats = _window(cfg, esdf_budget, esdf_block_cap, state, es, depths,
-                    textures, Rs, Ts, K_dep, K_color, active_submap)
-    return (state, esdf, fixed, pending, seen_tsdf, seen_obs, stats)

@@ -20,9 +20,10 @@ bodies eagerly. These tests hold what can be held here:
 (c) the graph keys: equal for equal inputs and addresses, different when
     a static argument, ``dims_blocks``, the submap or a written tensor
     changes, with the graph path's control flow (entries, slots, the dense
-    unit's three graphs and host reads, clones out of the pool) run on the
-    CPU through a stand-in for the capture that re-runs the body at each
-    replay and writes its outputs where the first replay put them;
+    unit's three graphs and host reads, the sequences' per-frame calls,
+    clones out of the pool) run on the CPU through a stand-in for the
+    capture that re-runs the body at each replay and writes its outputs
+    where the first replay put them;
 (d) a dense-mode ``update_esdf`` leaves ``esdf``, ``esdf_fixed`` and
     ``esdf_observed`` at their addresses;
 and the node path as a whole: the textured DenseESDF at interval 1 through
@@ -60,6 +61,7 @@ from taichislam_tpu_torch.ops import esdf as te  # noqa: E402
 from taichislam_tpu_torch.ops import exports as tx  # noqa: E402
 from taichislam_tpu_torch.ops import graphs  # noqa: E402
 from taichislam_tpu_torch.ops import marching_cubes as tm  # noqa: E402
+from taichislam_tpu_torch.ops import sequence as tseq  # noqa: E402
 from taichislam_tpu_torch.ops import tsdf as tt  # noqa: E402
 from taichislam_tpu_torch.utils.synthetic_scene import D435_K, orbit_sequence  # noqa: E402,E501
 
@@ -413,6 +415,51 @@ def test_unit_keys(graph_path, fused):
     run(submap=1)
     run(state=_clone(st0))
     assert len(unit.entries) == 4
+
+
+@pytest.mark.parametrize("esdf", [False, True], ids=["tsdf", "esdf"])
+def test_sequence_keys_and_graphs(graph_path, esdf):
+    """The sequences on the units' protocol: a textured window of three
+    frames, run twice through the graph path, equals the eager ``*_ref``
+    loop on a clone bit for bit (state, ESDF carries, stats); it takes one
+    entry, run eagerly at its first frame, captured at its second and
+    replayed after; another active submap makes a new entry."""
+    unit = tseq.graph_cache
+    F = 3
+    depths = torch.from_numpy(np.stack(
+        [_wall().astype(np.int32) + 20 * f for f in range(F)]))
+    texs = torch.from_numpy(np.stack([_texture(f) for f in range(F)]))
+    Rs = np.stack([_rot(0.4 + 0.05 * f) for f in range(F)])
+    Ts = np.tile(np.float32([0.1, -0.2, 0.05]), (F, 1))
+    st = tt.make_tsdf_state(TCFG_TEX, device=DEV)
+    es = (torch.zeros(SHAPE), torch.zeros(SHAPE, dtype=torch.int8),
+          torch.zeros(SHAPE[:1], dtype=torch.bool), torch.zeros(SHAPE),
+          torch.zeros(SHAPE, dtype=torch.bool)) if esdf else ()
+    ref = (_clone(st),) + tuple(t.clone() for t in es)
+
+    def run(graph, written, submap=0):
+        args = (depths, texs, Rs, Ts, K, KC, submap)
+        if esdf:
+            fn = tseq.integrate_esdf_sequence if graph else \
+                tseq.integrate_esdf_sequence_ref
+            return fn(TCFG_TEX, 6, 64, *written, *args)[-1]
+        fn = tseq.integrate_depth_sequence if graph else \
+            tseq.integrate_depth_sequence_ref
+        return fn(TCFG_TEX, *written, *args)[-1]
+    for window in range(2):
+        got, want = run(True, (st,) + es), run(False, ref)
+        assert got.keys() == want.keys()
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+        for a, b in zip(graphs.leaves((st,) + es), graphs.leaves(ref)):
+            assert torch.equal(a, b)
+        assert len(unit.entries) == 1 and unit.eager_calls == 1
+        assert unit.captures == 1 and unit.replays == F * (window + 1) - 1
+    assert int(st.num_blocks) > 0 and bool(got["touched_blocks"].any())
+    seen = set(unit.entries)
+    run(True, (st,) + es, submap=1)
+    assert len(unit.entries) == 2 and next(reversed(unit.entries)) not in seen
+    assert unit.eager_calls == 2
 
 
 # ---------------------------------------------------------------------------

@@ -31,7 +31,9 @@ from taichislam_tpu.utils.comm import (CHANNEL_SUBMAP, CHANNEL_TRAJ,  # noqa: E4
                                        LoopbackTransport, SLAMComm)
 from taichislam_tpu_torch import bridge  # noqa: E402
 from taichislam_tpu_torch.models.dense_tsdf import DenseTSDF as TDense  # noqa: E402,E501
+from taichislam_tpu_torch.models.dense_tsdf import _block_cap  # noqa: E402,E501
 from taichislam_tpu_torch.models.octomap import Octomap as TOcto  # noqa: E402
+from taichislam_tpu_torch.ops.fusion import splat_contributions  # noqa: E402,E501
 from taichislam_tpu_torch.models.submap_mapping import \
     SubmapMapping as TSM  # noqa: E402
 from taichislam_tpu_torch.models.submap_mapping import \
@@ -297,6 +299,11 @@ def test_retry_after_overflow_equals_run_without_overflow():
     tight._fuse_touched_bucket = 1
     tight.fuse_submaps_incremental(sub, 0, sub_bcap=64, defer_verdict=True)
     assert tight.last_fuse["attempts"] > 2 and tight.last_fuse["bcap"] > 64
+    # the forced source drop grows the cap by the refuse's one cap rule
+    over = int(splat_contributions(sub.cfg, tight.cfg, 64, sub.state,
+                                   *tight._bases(), 0).dropped)
+    assert over > 0 and tight.last_fuse["bcap"] == _block_cap(
+        64 + over, sub.cfg.max_blocks)
     for k in ("fuse_dropped", "fuse_tiles_dropped"):
         assert int(tight.last_stats[k]) == 0
     a, b = global_dict_of(tight), global_dict_of(ref)

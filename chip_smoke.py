@@ -1183,15 +1183,22 @@ GENERAL = dict(texture_enabled=True, max_disp_particles=1024 * 1024,
 SDF_OPTS = dict(GENERAL, num_voxel_per_blk_axis=16)
 OCTO_OPTS = dict(GENERAL, K=2, min_occupy_thres=2)
 EXT = (np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
+# launch/taichislam-L515.launch's Kdepth (= its Kcolor)
+K_L515 = np.array([619.17600221997293, 0.0, 336.5129003757537, 0.0,
+                   618.17383465229932, 246.94614525720422, 0.0, 0.0, 1.0],
+                  np.float32)
 
 
 def submap_run(dev, frames, texs, n, octo=False, bin_floor=None,
-               keyframe_step=None, map_scale=None, mesh=True, **sm_kw):
+               keyframe_step=None, map_scale=None, mesh=True, K=None,
+               wrap=None, **sm_kw):
     """Drive SubmapMapping as node/core.py:152-169 builds it for ``n``
     textured frames, all keyframes: per frame recast_depth_to_map_by_frame,
     generate_mesh(1) on the global map (DenseTSDF) and the global + active
-    local export. Returns (mapping, mesher, sent payloads, per-frame
-    records with stage ms, drops, and each boundary's fusion)."""
+    local export. ``K``: both cameras' intrinsics (default the D435's);
+    ``wrap(mapping)`` runs before the first frame. Returns (mapping,
+    mesher, sent payloads, per-frame records with stage ms, drops, and each
+    boundary's fusion)."""
     import torch
     from taichislam_tpu_torch.models.dense_tsdf import DenseTSDF
     from taichislam_tpu_torch.models.mesher import MarchingCubeMesher
@@ -1205,10 +1212,12 @@ def submap_run(dev, frames, texs, n, octo=False, bin_floor=None,
     sm = SubmapMapping(Octomap if octo else DenseTSDF, global_opts=opts,
                        sub_opts=dict(opts, max_disp_particles=100000),
                        keyframe_step=keyframe_step, device=dev, **sm_kw)
-    sm.set_color_camera_intrinsic(KCOLOR)
-    sm.set_dep_camera_intrinsic(KDEPTH)
+    sm.set_color_camera_intrinsic(KCOLOR if K is None else K)
+    sm.set_dep_camera_intrinsic(KDEPTH if K is None else K)
     sent = []
     sm.map_send_handle = sent.append
+    if wrap is not None:
+        wrap(sm)
     col, gm = sm.submap_collection, sm.global_map
     mesher = None if octo or not mesh else MarchingCubeMesher(
         gm, 1_000_000, tsdf_surface_thres=0.25)
@@ -1337,6 +1346,7 @@ def submap_phase(dev, smi, frames, texs, launches, results):
         f"blocks {int(sm.global_map.state.num_blocks)}, sends {len(sent)}, "
         f"triangles {mesher.num_facelets}, export {recs[-1]['export']}")
     stage_log("phase8", recs, smi)
+    check_wire_beside_refuse(dev, frames, texs, floor)
     full = sorted_global(sm.global_map)
 
     # drone B ingests A's payloads; A re-poses by PGO and flushes
@@ -1406,6 +1416,48 @@ def submap_phase(dev, smi, frames, texs, launches, results):
     del sm_a
     check_seg_accum_fusion(dev, sm, results)
     submap_profile(dev, frames, texs, floor)
+
+
+def check_wire_beside_refuse(dev, frames, texs, bin_floor):
+    """Phase 8's submap wire beside the refuse, at the L515 launch file's
+    cameras: each boundary's payload, read from a pinned copy queued ahead
+    of the refuse and encoded and published on the wire pool while the
+    card runs the refuse, decodes to the arrays of a synchronous export of
+    the same submap taken on the node's thread just before the boundary. A
+    copy not ordered before the refuse's reuse of the gather's memory
+    would publish the refuse's bytes."""
+    import zlib
+    from taichislam_tpu_torch.models.submap_mapping import \
+        _decode_submap_npz
+    from taichislam_tpu_torch.utils import profiling
+    want = []
+
+    def inline(sm):
+        real = sm._finalize_active_submap
+
+        def finalize():
+            want.append(sm.submap_collection.export_submap())
+            return real()
+        sm._finalize_active_submap = finalize
+    n0 = profiling.counts().get("submap/wire_overlapped", 0)
+    _, _, sent, _ = submap_run(dev, frames, texs, 2 * KEYFRAME_STEP + 1,
+                               bin_floor=bin_floor, mesh=False, K=K_L515,
+                               wrap=inline)
+    overlapped = profiling.counts().get("submap/wire_overlapped", 0) - n0
+    require(len(sent) == len(want) == overlapped == 2,
+            f"wire beside the refuse: {len(sent)} sent, {len(want)} "
+            f"exports, {overlapped} overlapped")
+    for buf, w in zip(sent, want):
+        got = _decode_submap_npz(zlib.decompress(buf))
+        for k in ("indices", "TSDF", "W_TSDF", "occupy", "color"):
+            a, b = np.asarray(got[k]), np.asarray(w[k])
+            require(a.dtype == b.dtype and np.array_equal(a, b),
+                    f"wire beside the refuse: {k} differs from the "
+                    f"synchronous export")
+    log(f"[phase8] wire beside the refuse (L515 cameras): {len(sent)} "
+        f"payloads ({[len(w['TSDF']) for w in want]} voxels, colour "
+        f"included) equal to a synchronous export, {overlapped} boundaries "
+        f"overlapped")
 
 
 def check_seg_accum_fusion(dev, sm, results):

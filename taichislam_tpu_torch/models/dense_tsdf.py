@@ -4,8 +4,9 @@ Counterpart of the JAX package's ``models/dense_tsdf.py`` for a single map:
 constructor, adaptive ray-bin bucket, depth and point-cloud ingest
 (textured or not), the mesh-dirty protocol of the incremental mesher,
 surface / slice exports, ``count_active``, the npy submap dict
-(``export_submap``, ``saveMap`` / ``loadMap``, byte-compatible with the
-JAX package's), the compact submap gather of the voxgraph wire
+(``export_submap``, or ``start_export_submap`` to read it later on another
+thread; ``saveMap`` / ``loadMap``, byte-compatible with the JAX
+package's), the compact submap gather of the voxgraph wire
 (``export_submap_async`` / ``finish_export_submap``), remote submaps in
 descending slots, submap fusion (``fuse_submaps``,
 ``fuse_submaps_incremental``), ``reset``, the ``init_sphere`` fixture and
@@ -34,7 +35,7 @@ from taichislam_tpu_torch.ops import fusion as fusion_ops
 from taichislam_tpu_torch.ops import sequence as seq_ops
 from taichislam_tpu_torch.ops import tsdf as tsdf_ops
 from taichislam_tpu_torch.utils import profiling
-from taichislam_tpu_torch.utils.profiling import host_read
+from taichislam_tpu_torch.utils.profiling import host_read, host_read_start
 
 
 # the most source block slots one refuse pass splats: the default block
@@ -470,17 +471,38 @@ class DenseTSDF(BaseMap):
         """The active submap's observed voxels as the submap wire dict
         (int16 indices, f16 TSDF / W_TSDF / color, int8 occupy)."""
         with profiling.span("submap.export") as sp:
-            cap = exports_ops.pow2_capacity(max(self.count_active(), 1))
-            buf = exports_ops.sparse_gather_packed(
-                self.cfg, cap, self._export_block_bucket(), self.state,
-                self.active_submap_id)
-            indices, tsdf, w_tsdf, occupy, color, _, _ = \
-                exports_ops.unpack_sparse_delivery(buf, cap,
-                                                   self.enable_texture)
-            obj = self._submap_dict(indices, tsdf, w_tsdf, occupy, color)
+            obj = self.start_export_submap()()
         print(f"Export submap {self.active_submap_id} to numpy, voxels "
-              f"{len(tsdf)/1024:.1f}k, time: {sp.ms:.1f}ms")
+              f"{len(obj['TSDF'])/1024:.1f}k, time: {sp.ms:.1f}ms")
         return obj
+
+    def start_export_submap(self):
+        """:meth:`export_submap` without the wait: the active submap's
+        gather and its copy into a pinned host block are queued on the
+        current stream. The gather is sized by the submap's observed voxels
+        and allocated blocks, read first in one read: the submap's own
+        blocks, not the whole collection's. Returns a function, callable
+        from any thread, that waits for the copy and returns the submap
+        dict. Work queued on the stream afterwards may reuse the gather's
+        device memory: the copy runs before it."""
+        sid = self.active_submap_id
+        vox, blocks = (int(x) for x in host_read(
+            "tsdf.count_active", torch.stack([
+                exports_ops.count_active(self.cfg, self.state, sid),
+                exports_ops.count_active_blocks(self.cfg, self.state, sid)])))
+        cap = exports_ops.pow2_capacity(max(vox, 1))
+        bcap = min(exports_ops.pow2_capacity(blocks + 1, lo=64),
+                   self.cfg.max_blocks)
+        buf = exports_ops.sparse_gather_packed(self.cfg, cap, bcap,
+                                               self.state, sid)
+        read = host_read_start("exports.sparse_buffer", buf)
+
+        def finish():
+            indices, tsdf, w_tsdf, occupy, color, _, _ = \
+                exports_ops.unpack_sparse_delivery(read().numpy(), cap,
+                                                   self.enable_texture)
+            return self._submap_dict(indices, tsdf, w_tsdf, occupy, color)
+        return finish
 
     def export_submap_async(self, lane_bucket, block_bucket, submap_id=None,
                             state=None):

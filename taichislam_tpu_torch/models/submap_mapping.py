@@ -14,15 +14,20 @@ with ``allow_pickle=False``; an inbound pickle payload is decoded only with
 ``wire_format="pickle"`` (reference peers on a trusted network) and dropped
 otherwise.
 
-``async_finalize`` moves the wire work of a keyframe boundary off the main
-thread: the compact submap gather is started on the device, and a worker
-pool reads, compresses and sends it in boundary order. The capacity
-verdict of the incremental fuse is read at the boundary itself (one host
-read), not deferred.
+At a keyframe boundary the finished submap's gather and its copy to the
+host are queued on the device ahead of the global map's fuse; a worker
+pool reads, encodes and compresses it, and one sender thread publishes it,
+while the node's thread runs the fuse. The boundary waits for that publish
+before it returns (``submap/wire_overlapped`` counts such boundaries), so
+peers receive every submap in boundary order, within the boundary's call.
+``async_finalize`` goes further: the compact submap gather is started on
+the device and the boundary returns without waiting for the send. The
+capacity verdict of the incremental fuse is read at the boundary itself
+(one host read), not deferred.
 
 Every encoded submap handed to the transport is counted, in bytes, under
 ``submap/wire_bytes`` (``utils/profiling.count``), by the thread that
-hands it over: the node's own, or the async path's sender.
+hands it over: the sender, or the node's own for ``flush``.
 """
 
 from __future__ import annotations
@@ -132,7 +137,7 @@ class SubmapMapping:
         self._wire_caps_lock = threading.Lock()
         self._wire_q = None
         self._wire_thread = None
-        self._wire_errors = []        # failed async sends, raised at join
+        self._wire_errors = []        # failed pool sends, raised at join
         # a PGO base-pose update marks the incremental global map stale:
         # the next fusion is the full reset + refuse-all
         self._fusion_dirty = False
@@ -259,25 +264,34 @@ class SubmapMapping:
         """Ship the finished submap to peers, advance the collection to a
         fresh slot, and bring the global map up to date. Under the span
         ``submap.finalize`` (``create_new_submap``): ``submap.export`` (the
-        gather), ``submap.send`` (encode and publish) and ``submap.refuse``
-        (the global map's fuse)."""
-        finished_sid = self.submap_collection.get_active_submap_id()
+        gather and its host copy, queued on the device), ``submap.send``
+        (the hand-off to the wire pool), ``submap.refuse`` (the global
+        map's fuse, beside which the pool reads, encodes and publishes) and
+        a second ``submap.send`` (the wait for that publish)."""
+        col = self.submap_collection
+        finished_sid = col.get_active_submap_id()
         if self.async_finalize and not self._fusion_dirty and \
                 not self._active_in_global:
             self._finalize_active_submap_async(finished_sid)
             return
-        finished = self.submap_collection.export_submap()
-        if self.async_finalize:
-            # peers must receive submaps in boundary order: drain queued
-            # async sends before this direct one
-            self.wire_join()
-        self.send_submap(finished)
-        self.submap_collection.switch_to_next_submap()
-        self.submap_collection.clear_last_TSDF_exporting = True
+        if self.submap_type == Octomap:
+            finish = col.export_submap     # {}: nothing on the device
+        else:
+            with profiling.span("submap.export"):
+                finish = col.start_export_submap()
+        frame_id = self.active_submap_frame_id
+        with profiling.span("submap.send"):
+            # the FIFO sender keeps boundary order behind queued async sends
+            self._ensure_wire_workers()
+            self._wire_q.put(self._wire_pool.submit(
+                self._wire_submap, finish, frame_id,
+                self.pgo_poses[frame_id]))
+        profiling.count("submap/wire_overlapped")
+        col.switch_to_next_submap()
+        col.clear_last_TSDF_exporting = True
         if self.incremental_fuse and not self._fusion_dirty and \
                 not self._active_in_global:
-            self.global_map.fuse_submaps_incremental(self.submap_collection,
-                                                     finished_sid)
+            self.global_map.fuse_submaps_incremental(col, finished_sid)
             if self.post_local_to_global_callback is not None:
                 self.post_local_to_global_callback(self.global_map)
         else:
@@ -286,6 +300,8 @@ class SubmapMapping:
             self.local_to_global()
             self._fusion_dirty = False
             self._active_in_global = False
+        with profiling.span("submap.send"):
+            self._wire_q.join()    # a failed send raises in create_new_submap
 
     def _finalize_active_submap_async(self, finished_sid):
         """Keyframe boundary with the wire work on the worker pool. The
@@ -343,10 +359,10 @@ class SubmapMapping:
                    col.cfg.max_blocks * col.cfg.grid.voxels_per_block)
         return lane, blk
 
-    # -- wire workers (async_finalize) --------------------------------------
+    # -- wire workers --------------------------------------------------------
     # A pool prepares the payloads of consecutive boundaries (read, decode
     # on truncation, compress); one sender thread sends them in boundary
-    # order, so peers see the same sequence as with the synchronous path.
+    # order, whichever path queued them.
     def _ensure_wire_workers(self):
         if self._wire_thread is None:
             self._wire_pool = ThreadPoolExecutor(
@@ -367,6 +383,15 @@ class SubmapMapping:
         device); encoding and compression run on the pool."""
         self._ensure_wire_workers()
         self._wire_q.put(self._wire_pool.submit(self._encode, obj))
+
+    def _wire_submap(self, finish, frame_id, pose):
+        """Pool task of a boundary that waits for its send: read the
+        finished submap (``finish``, from ``start_export_submap``), stamp
+        its frame and pose, and return the encoded payload."""
+        obj = finish()
+        obj["frame_id"] = frame_id
+        obj["pose"] = pose
+        return self._encode(obj)
 
     def _wire_prepare(self, buf, done, lane_cap, blk_cap, sid, frame_id,
                       pose):
@@ -423,7 +448,7 @@ class SubmapMapping:
                 profiling.count("submap/wire_bytes", len(compressed))
                 print(f"[SubmapMapping] Send submap with "
                       f"{len(raw)/1024:.1f} kB, compressed "
-                      f"{len(compressed)/1024:.1f}kB (async wire)")
+                      f"{len(compressed)/1024:.1f}kB (wire pool)")
             except Exception as e:
                 # keep the sender alive; the failure is raised at
                 # wire_join() / sync(): a dropped send would leave peers
@@ -466,6 +491,10 @@ class SubmapMapping:
                   f"now have {sid+1} submaps")
             if self.autosave_path is not None and sid % 2 == 0:
                 self.saveMap(self.autosave_path)
+        if not self.async_finalize:
+            # the finished submap's failed send raises here, once the next
+            # submap stands: the boundary is whole, and later ones publish
+            self.wire_join()
         return self.submap_collection
 
     def local_to_global(self):

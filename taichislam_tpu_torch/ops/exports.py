@@ -305,12 +305,20 @@ def count_active(cfg: TSDFConfig, state: GridState, active_submap: int):
             obs).sum(dtype=torch.int32)
 
 
+def count_active_blocks(cfg: TSDFConfig, state: GridState,
+                        active_submap: int):
+    """Allocated blocks of the active submap (0-d int32): a ``block_cap``
+    of :func:`sparse_gather` above it covers the submap."""
+    return _active_voxel_mask(cfg.grid, state, active_submap)[:, 0].sum(
+        dtype=torch.int32)
+
+
 def sparse_gather(cfg: TSDFConfig, capacity: int, block_cap: int,
                   state: GridState, active_submap: int):
     """The active submap's observed voxels as (indices (capacity, 3) int32,
     TSDF f32, W_TSDF f32, occupy int8, color (capacity, 3) f32 or (0, 3),
-    kept, total) in linear-index order. ``block_cap`` must cover the
-    allocated blocks."""
+    kept, total) in linear-index order. ``block_cap`` must cover the active
+    submap's allocated blocks."""
     spec = cfg.grid
     ch = state.channels
     nb = spec.max_blocks + 1

@@ -20,7 +20,9 @@ counters the port places where its work happens:
 - ``count(name, n)``: host counters in one dict, always on (``counts()``).
   ``host_read(site, t)`` copies ``t`` to the host (into pinned memory
   with ``pinned=True``), counts it under ``host_read/<site>`` and, while
-  tracing, opens the span ``sync/<site>``.
+  tracing, opens the span ``sync/<site>``. ``host_read_start(site, t)``
+  queues the same pinned copy without waiting and returns the wait, which
+  any thread may call.
   The kernels' wrappers count the work of each launch (``ops/kernels/
   build.count``), graph replays included.
 - Frame records: the node calls ``frame_begin(frame)`` / ``frame_end()``
@@ -159,6 +161,28 @@ def host_read(site: str, t: torch.Tensor, pinned: bool = False
         return _read(t, pinned)
     with span("sync/" + site):
         return _read(t, pinned)
+
+
+def host_read_start(site: str, t: torch.Tensor):
+    """``host_read(site, t, pinned=True)`` split in two: the copy into a
+    pinned block is queued now on the current stream, behind whatever that
+    stream already holds, and counted now; the returned function (callable
+    from any thread) waits for it, under the span ``sync/<site>``, and
+    returns the host tensor. A CPU or empty ``t`` is read at once."""
+    if not (t.is_cuda and t.numel()):
+        h = host_read(site, t)
+        return lambda: h
+    count("host_read/" + site)
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    h.copy_(t, non_blocking=True)
+    done = torch.cuda.Event(blocking=True)
+    done.record(torch.cuda.current_stream(t.device))
+
+    def wait():
+        with span("sync/" + site):
+            done.synchronize()
+        return h
+    return wait
 
 
 def _read(t: torch.Tensor, pinned: bool) -> torch.Tensor:

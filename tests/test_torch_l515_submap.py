@@ -23,6 +23,8 @@ from benchmark.reference.textured_submaps import (  # noqa: E402
     run_with_colors)
 from taichislam_tpu_torch.node.core import TaichiSLAMNodeCore  # noqa: E402
 from taichislam_tpu_torch.utils import profiling  # noqa: E402
+from submap_wire import (assert_same_payloads,  # noqa: E402
+                         record_inline_payloads)
 
 ROOT = Path(__file__).resolve().parent.parent
 CELL = "l515_submap_textured.orbit30"
@@ -293,6 +295,47 @@ def test_refuse_retry_counts_each_attempt(prof, device):
     assert names.count("fusion.reduce") == names.count("fusion.k1") == \
         attempts
     assert names.count("fusion.apply") == 1
+
+
+@pytest.mark.parametrize("device", DEVICES)
+def test_boundary_wire_overlaps_the_refuse(prof, device):
+    """Each boundary queues its textured submap's gather and host copy
+    ahead of the refuse and waits for the publish after it: in the
+    boundary's record ``submap.finalize`` holds ``submap.export``, the
+    hand-off ``submap.send``, ``submap.refuse`` and the waiting
+    ``submap.send``, in that order; one ``submap/wire_overlapped``; the
+    export's read counted once, its wait on the pool's thread recording no
+    span; the payloads, colour included, those of an inline export."""
+    device = _device(device)
+    sent, bufs = [], []
+    core = _l515_node(sent, device=device)
+    m = core.mapping
+    counted = m.map_send_handle
+    m.map_send_handle = lambda buf: (bufs.append(buf), counted(buf))
+    want = record_inline_payloads(m)
+    prof.enable(True)
+    _drive(core, 5)
+    boundaries = [r for r in prof.frames()
+                  if any(s["name"] == "submap.finalize" for s in r["spans"])]
+    assert len(boundaries) == len(sent) == 2
+    for r in boundaries:
+        spans, c = r["spans"], r["counts"]
+        [fin] = [i for i, s in enumerate(spans)
+                 if s["name"] == "submap.finalize"]
+        kids = [s["name"] for s in spans if s["parent"] == fin and
+                s["name"].startswith("submap.")]
+        # the inline reference's own export comes first
+        assert kids == ["submap.export", "submap.export", "submap.send",
+                        "submap.refuse", "submap.send"], kids
+        assert c["submap/wire_overlapped"] == 1
+        assert c["host_read/exports.sparse_buffer"] == 2    # with the inline
+        # the inline read's span; the boundary's own is the node's on the
+        # CPU (read at once), the pool's on the card (waited there)
+        names = [s["name"] for s in spans]
+        assert names.count("sync/exports.sparse_buffer") == (
+            2 if device == "cpu" else 1)
+    assert_same_payloads(m, bufs, want)
+    assert [len(b) for b in bufs] == sent
 
 
 # -- the collection's capacity and the refuse in passes ------------------------

@@ -125,6 +125,52 @@ def test_spans_of_another_thread_stay_off_the_records(prof):
     assert rec["counts"] == {"host_read/submap.wire_buffer": 1}
 
 
+def test_host_read_start_counts_once_and_waits_on_any_thread(prof):
+    """``host_read_start``: counted once, when queued; its wait returns the
+    tensor on another thread. A CPU tensor is read at once, on the caller's
+    thread, so its span is in the caller's record; an empty one moves
+    nothing and is not counted."""
+    import threading
+    prof.enable(True)
+    prof.frame_begin(0)
+    t = torch.arange(6)
+    wait = prof.host_read_start("exports.sparse_buffer", t)
+    seen = []
+    worker = threading.Thread(target=lambda: seen.append(wait()))
+    worker.start()
+    worker.join(timeout=30)
+    assert not worker.is_alive() and torch.equal(seen[0], t)
+    assert torch.equal(prof.host_read_start("unit.site", t[:0])(), t[:0])
+    prof.frame_end()
+    [rec] = prof.frames()
+    assert [s["name"] for s in rec["spans"]] == ["sync/exports.sparse_buffer"]
+    assert rec["counts"] == {"host_read/exports.sparse_buffer": 1}
+
+
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.card)])
+def test_host_read_start_reads_what_the_stream_held(prof, device):
+    """The copy is queued behind the work that wrote the tensor and ahead
+    of later work that reuses its device memory: the wait, on another
+    thread, returns the values at the call."""
+    import threading
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs the CUDA card: the pinned copy and its event")
+    n = 1 << 22
+    t = torch.arange(n, dtype=torch.int32, device=device) * 3
+    wait = prof.host_read_start("unit.site", t)
+    del t                       # the allocator may hand its block on
+    later = torch.full((n,), -1, dtype=torch.int32, device=device)
+    seen = []
+    worker = threading.Thread(target=lambda: seen.append(wait()))
+    worker.start()
+    worker.join(timeout=60)
+    assert not worker.is_alive() and int(later[0]) == -1
+    assert seen[0].device.type == "cpu"
+    assert torch.equal(seen[0], torch.arange(n, dtype=torch.int32) * 3)
+    assert prof.counts() == {"host_read/unit.site": 1}
+
+
 # -- the kernels' work through a capture's tally -----------------------------
 
 def test_count_adds_the_captured_work_on_each_replay(prof, monkeypatch):
@@ -254,16 +300,20 @@ def test_boundary_spans_only_on_boundary_frames(prof):
     for k, r in enumerate(recs):
         names = [s["name"] for s in r["spans"]]
         boundary = k > 0 and k % 2 == 0
-        for part in ("submap.finalize", "submap.export", "submap.send",
-                     "submap.refuse"):
-            assert names.count(part) == int(boundary), (k, part, names)
+        # submap.send twice: the hand-off to the wire pool before the
+        # refuse, the wait for the publish after it
+        for part, n in (("submap.finalize", 1), ("submap.export", 1),
+                        ("submap.send", 2), ("submap.refuse", 1)):
+            assert names.count(part) == n * boundary, (k, part, names)
         assert names.count("submap.create") == int(k == 0 or boundary)
         if boundary:
             by = {s["name"]: i for i, s in enumerate(r["spans"])}
             fin = by["submap.finalize"]
             assert r["spans"][fin]["parent"] == by["node.recast"]
-            for part in ("submap.export", "submap.send", "submap.refuse"):
-                assert r["spans"][by[part]]["parent"] == fin
+            for s in r["spans"]:
+                if s["name"] in ("submap.export", "submap.send",
+                                 "submap.refuse"):
+                    assert s["parent"] == fin, s
             assert r["counts"]["host_read/tsdf.fuse_verdict"] >= 1
             assert r["counts"]["host_read/exports.sparse_buffer"] == 1
         else:

@@ -38,6 +38,9 @@ from taichislam_tpu_torch.models.submap_mapping import \
     SubmapMapping as TSM  # noqa: E402
 from taichislam_tpu_torch.models.submap_mapping import \
     _decode_submap_npz as tdecode  # noqa: E402
+from taichislam_tpu_torch.utils import profiling  # noqa: E402
+from submap_wire import (assert_same_payloads, decoded,  # noqa: E402
+                         record_inline_payloads)
 
 K_DEP = np.array([40.0, 0, 32.0, 0, 40.0, 24.0, 0, 0, 1], np.float32)
 SUB_OPTS = dict(map_scale=[6.4, 6.4], voxel_scale=0.1,
@@ -352,6 +355,89 @@ def test_async_wire_failure_surfaces_at_sync():
     with pytest.raises(RuntimeError, match="async submap send"):
         sm.sync()
     sm.sync()   # consumed: no second raise
+
+
+@pytest.mark.parametrize("wire_format", ["npz", "pickle"])
+def test_boundary_wire_equals_inline_export(wire_format):
+    """Each boundary's read, encode and publish run on the wire pool beside
+    the fuse: over 3 boundaries the published payloads decode to the arrays
+    of an inline export_submap() + _encode of the same submap, in boundary
+    order, each published before its boundary's call returns; and
+    ``submap/wire_overlapped`` counts every boundary."""
+    sent, at_return = [], []
+    sm = make(TSM, wire_format=wire_format)
+    sm.map_send_handle = sent.append
+    encode = sm._encode
+
+    def slow_encode(obj):           # outlasts the fuse: the join must wait
+        time.sleep(0.3)
+        return encode(obj)
+    sm._encode = slow_encode
+    want = record_inline_payloads(sm)
+    before = profiling.counts().get("submap/wire_overlapped", 0)
+    for t in range(7):                  # boundaries at frames 2, 4 and 6
+        drive((sm,), [t])
+        at_return.append(len(sent))
+    assert at_return == [0, 0, 1, 1, 2, 2, 3]
+    assert profiling.counts()["submap/wire_overlapped"] - before == 3
+    assert_same_payloads(sm, sent, want)
+    assert [int(d["frame_id"]) for d in decoded(sm, sent)] == [0, 2, 4]
+
+
+def test_boundary_wire_failure_raises_from_its_boundary():
+    """A pool task that raises makes its boundary's call raise, once the
+    next submap stands; the sender lives on, and later boundaries publish
+    in order."""
+    sent = []
+    sm = make(TSM)
+    sm.map_send_handle = sent.append
+    real = sm._encode
+
+    def encode(obj):
+        if obj["frame_id"] == 2:
+            raise ValueError("encoder down")
+        return real(obj)
+    sm._encode = encode
+    drive((sm,), range(4))              # the boundary at 2 sends submap 0
+    with pytest.raises(RuntimeError, match="submap send") as err:
+        drive((sm,), [4])               # submap 2's send fails
+    assert isinstance(err.value.__cause__, ValueError)
+    assert sm.submaps == {0: 0, 2: 1, 4: 2}
+    assert sm.submap_collection.active_submap_id == 2
+    drive((sm,), range(5, 9))
+    ids = [int(d["frame_id"]) for d in decoded(sm, sent)]
+    assert ids[0] == 0 and 2 not in ids and len(ids) == 3
+    assert ids == sorted(ids)
+    assert sm._wire_thread.is_alive()
+    sm.sync()                           # nothing left to raise
+
+
+def test_submap_export_gathers_its_own_blocks():
+    """export_submap sizes its gather by the active submap's own blocks,
+    read with its voxel count in one read: the same dict as a gather at the
+    whole collection's block cap."""
+    from taichislam_tpu_torch.ops import exports as exports_ops
+    sm = make(TSM)
+    drive((sm,), range(5))
+    col = sm.submap_collection
+    sid = col.active_submap_id
+    blocks = int(exports_ops.count_active_blocks(col.cfg, col.state, sid))
+    whole = col._export_block_bucket()
+    assert 0 < exports_ops.pow2_capacity(blocks + 1, lo=64) < whole
+    cap = exports_ops.pow2_capacity(col.count_active())
+    buf = exports_ops.sparse_gather_packed(col.cfg, cap, whole, col.state,
+                                           sid)
+    want = col._submap_dict(*exports_ops.unpack_sparse_delivery(
+        buf, cap, col.enable_texture)[:5])
+    before = profiling.counts()
+    got = col.export_submap()
+    reads = {k: v - before.get(k, 0) for k, v in profiling.counts().items()
+             if k.startswith("host_read/") and v != before.get(k, 0)}
+    assert reads == {"host_read/tsdf.count_active": 1,
+                     "host_read/exports.sparse_buffer": 1}
+    assert got.keys() == want.keys() and len(got["TSDF"]) > 0
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 def test_pickle_payload_dropped_under_npz():
